@@ -1,0 +1,102 @@
+"""PyTorch port: the serving Engine (dh, hash_to_group) byte-equal to the JAX
+package's Engine and to the oracle, and the whole ECDH flow."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from zerocaf_tpu import oracle as o
+from zerocaf_tpu.serving import Engine as JaxEngine
+from zerocaf_tpu_torch import Engine, RistrettoPoint, Scalar
+from zerocaf_tpu_torch.serving import pad_batch
+
+BATCH = 8
+
+
+def _sk(seeds):
+    return np.stack([np.frombuffer(
+        (int.from_bytes(s.tobytes(), "little") % o.R).to_bytes(32, "little"),
+        np.uint8) for s in seeds])
+
+
+@pytest.fixture(scope="module")
+def flow():
+    rng = np.random.default_rng(51)
+    seeds_a = rng.integers(0, 256, (BATCH, 64), dtype=np.uint8)
+    seeds_b = rng.integers(0, 256, (BATCH, 64), dtype=np.uint8)
+    ka = [int.from_bytes(s.tobytes(), "little") % o.R for s in seeds_a]
+    kb = [int.from_bytes(s.tobytes(), "little") % o.R for s in seeds_b]
+    pk_b = np.stack([np.frombuffer(o.ristretto_compress(o.scalar_mul(o.BASEPOINT, k)),
+                                   np.uint8) for k in kb])
+    peer = pk_b.copy()
+    peer[1] = 0xFF                                   # non-canonical encoding
+    uniform = rng.integers(0, 256, (BATCH, 64), dtype=np.uint8)
+    return dict(seeds_a=seeds_a, seeds_b=seeds_b, ka=ka, kb=kb, sk_a=_sk(seeds_a),
+                sk_b=_sk(seeds_b), pk_b=pk_b, peer=peer, uniform=uniform)
+
+
+def test_dh_matches_jax_engine_and_oracle(flow):
+    wire, ok = Engine(batch=BATCH).dh(torch.tensor(flow["sk_a"]),
+                                      torch.tensor(flow["peer"]))
+    jwire, jok = JaxEngine(batch=BATCH, donate=False).dh(
+        jnp.asarray(flow["sk_a"]), jnp.asarray(flow["peer"]))
+    ok, wire = ok.numpy(), wire.numpy()
+    assert np.array_equal(ok, np.asarray(jok))
+    assert not ok[1] and ok[[0] + list(range(2, BATCH))].all()
+    # invalid lanes hold garbage in both packages; valid lanes are bytes
+    assert np.array_equal(wire[ok], np.asarray(jwire)[ok])
+    for i in np.flatnonzero(ok):
+        assert wire[i].tobytes() == o.ristretto_compress(
+            o.scalar_mul(o.BASEPOINT, flow["ka"][i] * flow["kb"][i] % o.R))
+
+
+def test_hash_to_group_matches_jax_engine_and_oracle(flow):
+    got = Engine(batch=BATCH).hash_to_group(torch.tensor(flow["uniform"])).numpy()
+    want = np.asarray(JaxEngine(batch=BATCH, donate=False).hash_to_group(
+        jnp.asarray(flow["uniform"])))
+    assert np.array_equal(got, want)
+    for i in range(BATCH):
+        assert got[i].tobytes() == o.ristretto_compress(
+            o.from_uniform_bytes(flow["uniform"][i].tobytes()))
+
+
+def test_ecdh_flow(flow):
+    """Random scalars -> public keys by the ladder -> wire -> dh both ways:
+    the two sides' shared secrets agree, and equal the oracle."""
+    sa = Scalar.from_bytes_wide(torch.tensor(flow["seeds_a"]))
+    sb = Scalar.from_bytes_wide(torch.tensor(flow["seeds_b"]))
+    assert np.array_equal(sa.to_bytes().numpy(), flow["sk_a"])
+    pk_a = (RistrettoPoint.basepoint((BATCH,)) * sa).compress()
+    pk_b = (RistrettoPoint.basepoint((BATCH,)) * sb).compress()
+    assert np.array_equal(pk_b.numpy(), flow["pk_b"])
+    eng = Engine(batch=BATCH)
+    s_ab, ok_ab = eng.dh(sa.to_bytes(), pk_b)
+    s_ba, ok_ba = eng.dh(sb.to_bytes(), pk_a)
+    assert ok_ab.all() and ok_ba.all()
+    assert torch.equal(s_ab, s_ba)
+    i = 3
+    assert s_ab[i].numpy().tobytes() == o.ristretto_compress(
+        o.scalar_mul(o.BASEPOINT, flow["ka"][i] * flow["kb"][i] % o.R))
+
+
+def test_scalar_from_bytes_mask_and_random():
+    b = np.zeros((3, 32), np.uint8)
+    b[1] = np.frombuffer(o.R.to_bytes(32, "little"), np.uint8)   # == r
+    b[2] = np.frombuffer((o.R - 1).to_bytes(32, "little"), np.uint8)
+    s, ok = Scalar.from_bytes(torch.tensor(b))
+    assert ok.tolist() == [True, False, True]
+    assert list(s.to_ints()) == [0, 0, o.R - 1]
+    g = torch.Generator().manual_seed(5)
+    r = Scalar.random(g, (4,))
+    assert r.shape == (4,) and all(0 <= v < o.R for v in r.to_ints())
+
+
+def test_pad_batch_and_pinned_batch():
+    arr = np.ones((3, 32), np.uint8)
+    padded, n = pad_batch(arr, BATCH)
+    assert n == 3 and padded.shape == (BATCH, 32) and not padded[3:].any()
+    with pytest.raises(ValueError):
+        pad_batch(np.ones((BATCH + 1, 32), np.uint8), BATCH)
+    with pytest.raises(ValueError, match="pad_batch"):
+        Engine(batch=BATCH).hash_to_group(torch.zeros((3, 64), dtype=torch.uint8))

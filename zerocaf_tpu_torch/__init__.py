@@ -1,0 +1,19 @@
+"""zerocaf_tpu_torch: the PyTorch / CUDA port of zerocaf_tpu for one NVIDIA
+H100.
+
+Batched arithmetic on the Sonny curve and its Ristretto group with the JAX
+package's tensor boundary (int32 [..., 22] limbs, radix 2^12).  The hot
+paths -- field multiply (K1), power chains (K2), the oblivious ladder (K3)
+and the signed windowed multiply (K4) -- are hand-written CUDA kernels for
+sm_90a, built from ``csrc/`` at first use; on CPU tensors the same algebra
+runs in plain PyTorch.  This package never imports jax.
+"""
+
+from .field import FieldElement
+from .models.edwards import EdwardsPoint
+from .models.ristretto import CompressedRistretto, RistrettoPoint
+from .scalar import Scalar
+from .serving import Engine
+
+__all__ = ["CompressedRistretto", "EdwardsPoint", "Engine", "FieldElement",
+           "RistrettoPoint", "Scalar"]

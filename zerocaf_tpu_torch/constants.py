@@ -1,0 +1,87 @@
+"""Curve constants in the limb representation (zerocaf_tpu/constants.py
+counterpart).
+
+Every value is derived at import time from the pure-Python oracle, exactly as
+the JAX package derives its own; ``interop.check_constants`` holds the two
+sets equal.  Arrays are host numpy int32 so that importing the package makes
+no tensor on any device; the modules that use them move them to the device of
+their operands.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from . import oracle
+from .config import NUM_LIMBS, RADIX_BITS
+
+P = oracle.P
+R = oracle.R
+DELTA_P = oracle.DELTA_P
+DELTA_R = oracle.DELTA_R
+FOLD_C_P = DELTA_P                  # 2^252 == -FOLD_C_P (mod p)
+FOLD_C_R = 8 * DELTA_R              # 2^252 == -FOLD_C_R (mod r)
+
+EDWARDS_D = oracle.EDWARDS_D
+SQRT_M1 = oracle.SQRT_M1
+C6 = oracle.C6                      # 6^((p-1)/4): the Tonelli-raw sqrt(-1)
+INV_SQRT_A_MINUS_D = oracle.INV_SQRT_A_MINUS_D
+SQRT_AD_MINUS_ONE = oracle.SQRT_AD_MINUS_ONE
+ONE_MINUS_D_SQ = oracle.ONE_MINUS_D_SQ
+D_MINUS_ONE_SQ = oracle.D_MINUS_ONE_SQ
+POS_RANGE = oracle.POS_RANGE
+
+# Fixed exponents of the branch-free chains (ops/inv_sqrt.py).
+EXP_INV = P - 2                     # Fermat inverse
+EXP_LEGENDRE = (P - 1) // 2
+EXP_SQRT = (P + 3) // 8             # p == 5 (mod 8) closed-form sqrt
+EXP_SQRT_RATIO = (P - 5) // 8       # dalek sqrt_ratio exponent
+CHAIN_EXPONENTS = (EXP_INV, EXP_LEGENDRE, EXP_SQRT, EXP_SQRT_RATIO)
+
+
+def _limbs(v: int, n: int = NUM_LIMBS) -> np.ndarray:
+    return np.array(oracle.int_to_limbs(v % (1 << (RADIX_BITS * n)), n=n),
+                    dtype=np.int32)
+
+
+def fold_limbs(c: int) -> np.ndarray:
+    """Fold constants are < 2^133: 12 limbs."""
+    assert c < 1 << (12 * RADIX_BITS)
+    return np.array(oracle.int_to_limbs(c, n=12), dtype=np.int32)
+
+
+P_LIMBS = _limbs(P)
+R_LIMBS = _limbs(R)
+FOLD_C_P_LIMBS = fold_limbs(FOLD_C_P)
+FOLD_C_R_LIMBS = fold_limbs(FOLD_C_R)
+DELTA_R_LIMBS = fold_limbs(DELTA_R)
+
+EDWARDS_D_LIMBS = _limbs(EDWARDS_D)
+EDWARDS_2D_LIMBS = _limbs(2 * EDWARDS_D % P)   # Niels-form table scale
+SQRT_M1_LIMBS = _limbs(SQRT_M1)
+C6_LIMBS = _limbs(C6)
+INV_SQRT_A_MINUS_D_LIMBS = _limbs(INV_SQRT_A_MINUS_D)
+SQRT_AD_MINUS_ONE_LIMBS = _limbs(SQRT_AD_MINUS_ONE)
+ONE_MINUS_D_SQ_LIMBS = _limbs(ONE_MINUS_D_SQ)
+D_MINUS_ONE_SQ_LIMBS = _limbs(D_MINUS_ONE_SQ)
+
+
+def point_limbs(p) -> np.ndarray:
+    """An oracle extended point (4 ints) as stacked [4, 22] limbs."""
+    return np.stack([_limbs(c) for c in p])
+
+
+BASEPOINT = point_limbs(oracle.BASEPOINT)
+IDENTITY = point_limbs(oracle.IDENTITY)
+
+# Limb-array constants that interop.check_constants compares with the JAX
+# package's same-named arrays.
+LIMB_CONSTANT_NAMES = (
+    "P_LIMBS", "R_LIMBS", "FOLD_C_P_LIMBS", "FOLD_C_R_LIMBS", "DELTA_R_LIMBS",
+    "EDWARDS_D_LIMBS", "EDWARDS_2D_LIMBS",
+    "SQRT_M1_LIMBS", "C6_LIMBS", "INV_SQRT_A_MINUS_D_LIMBS",
+    "SQRT_AD_MINUS_ONE_LIMBS", "ONE_MINUS_D_SQ_LIMBS", "D_MINUS_ONE_SQ_LIMBS",
+    "BASEPOINT", "IDENTITY",
+)
+INT_CONSTANT_NAMES = ("P", "R", "EDWARDS_D", "SQRT_M1", "C6", "EXP_INV",
+                      "EXP_LEGENDRE", "EXP_SQRT", "EXP_SQRT_RATIO")

@@ -1,0 +1,250 @@
+// Hopper kernels K1-K4 of the ECDH serving path, one thread per lane, and a
+// plain C launcher per kernel (bound with ctypes by
+// zerocaf_tpu_torch/ops/kernels/build.py).  Every launcher enqueues on the
+// stream it is given and returns cudaGetLastError().
+//
+// Layout: public tensors are lane-major [n][22] int32 and are read as they
+// are (not coalesced; acceptable at this stage).  Per-lane tables live in a
+// global scratch buffer that the wrapper allocates, limb-major with the lane
+// innermost -- [entry][coord][limb][n] -- so a warp's table reads coalesce.
+// Each kernel loops over all windows or digits inside one launch: the TPU's
+// split into a table kernel and a per-step kernel existed only for its
+// compiler.
+//
+// Constant time: the ladders read every table entry at every window and
+// blend with masks; no load is indexed by a secret digit.
+
+#include <cuda_runtime.h>
+
+#include "field.cuh"
+
+namespace zc {
+
+constexpr int BLOCK = 128;
+constexpr int POW_ENTRIES = 16;        // a^0 .. a^15 (width-4 windows)
+constexpr int MAX_SIGNED_WINDOWS = 256;
+
+__device__ __forceinline__ int lane_index() {
+  return blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+// K1 -- replaces zerocaf_tpu/ops/pallas/field_kernels.py:mul_tiled
+// (_mul_kernel / _mul_block).  a * b mod p (spec 0) or mod r (spec 1).
+// Bound by integer multiply-adds: one multiply per thread, 264 bytes of
+// traffic against ~1100 int32 operations.
+__global__ void __launch_bounds__(BLOCK)
+    k_mul(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+          int32_t* __restrict__ out, int n, int spec) {
+  const int lane = lane_index();
+  if (lane >= n) return;
+  Fe x, y;
+  fe_load(x, a, lane);
+  fe_load(y, b, lane);
+  fe_mul(x, x, y, spec);
+  fe_store(out, lane, x);
+}
+
+// K2 -- replaces field_kernels.py:pow_tiled (_pow_table_kernel,
+// _pow_step_kernel, _pow_sq_kernel).  a^e for a public exponent given as its
+// width-4 digits, most significant first: table a^0..a^15, seed from the
+// first digit, then per digit 4 squarings and, for a nonzero digit, one
+// multiply by the entry read with a one-hot select over all 16 entries.  The
+// digit branch is uniform across threads (the exponent is public).  Bound by
+// the ~250 squarings and ~63 multiplies of a 253-bit exponent; the table is
+// 1.4 KB per lane in a coalesced [16][22][n] buffer.
+__global__ void __launch_bounds__(BLOCK)
+    k_pow(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+          int32_t* __restrict__ tbl, const int32_t* __restrict__ digits,
+          int nwin, int n, int spec) {
+  const int lane = lane_index();
+  if (lane >= n) return;
+  const size_t nn = n;
+  const size_t entry = L * nn;
+  Fe base, cur;
+  fe_load(base, a, lane);
+  fe_store_t(tbl, lane, nn, fe_small(1));
+  fe_store_t(tbl + entry, lane, nn, base);
+  cur = base;
+  for (int k = 2; k < POW_ENTRIES; ++k) {
+    fe_mul(cur, cur, base, spec);
+    fe_store_t(tbl + k * entry, lane, nn, cur);
+  }
+  Fe r;
+  fe_load_t(r, tbl + digits[0] * entry, lane, nn);
+  for (int w = 1; w < nwin; ++w) {
+    for (int s = 0; s < 4; ++s) fe_sq(r, r, spec);
+    const int d = digits[w];
+    if (d != 0) {
+      Fe e, t;
+      fe_load_t(e, tbl, lane, nn);
+      for (int k = 1; k < POW_ENTRIES; ++k) {
+        fe_load_t(t, tbl + k * entry, lane, nn);
+        fe_cmov(e, t, -(int32_t)(d == k));
+      }
+      fe_mul(r, r, e, spec);
+    }
+  }
+  fe_store(out, lane, r);
+}
+
+// K3 and K4 -- replace field_kernels.py:scalar_mul_windowed_stepped
+// (_table_kernel, _step_kernel) and scalar_mul_windowed_signed
+// (_step_kernel_signed, _signed_recode).  k*P over nwin windows of `width`
+// bits, LSB-first in `win` ([n][nwin]).  Unsigned: a 2^width-entry Niels
+// table.  Signed: the windows are recoded per lane to digits in
+// [-2^(w-1), 2^(w-1)) (the top carry is dropped; it is zero for canonical
+// scalars) and the table holds entries 0..2^(w-1); the sign swaps Y+X with
+// Y-X and negates 2dT.  Per window, MSB-first: `width` doublings (T only on
+// the last), a one-hot read of every entry, one 8M addition.  Bound by
+// integer multiply-adds (~40 field multiplies per width-4 window) and by
+// register pressure: a point is 88 int32, the accumulator, the entry being
+// read and the temporaries of an addition do not fit in 255 registers, so
+// they live partly in local memory.
+__global__ void __launch_bounds__(BLOCK)
+    k_ladder(const int32_t* __restrict__ pts, const int32_t* __restrict__ win,
+             int nwin, int width, int is_signed, int32_t* __restrict__ tbl,
+             int32_t* __restrict__ out, int n) {
+  const int lane = lane_index();
+  if (lane >= n) return;
+  const size_t nn = n;
+  const size_t coord = L * nn;
+  const size_t entry = 4 * coord;
+  const size_t plane = L * nn;         // one coordinate of [4][n][22]
+  const int nb = is_signed ? (1 << (width - 1)) + 1 : 1 << width;
+
+  Pt P;
+  fe_load(P.X, pts, lane);
+  fe_load(P.Y, pts + plane, lane);
+  fe_load(P.Z, pts + 2 * plane, lane);
+  fe_load(P.T, pts + 3 * plane, lane);
+
+  // table: entry 0 the Niels identity (1, 1, 1, 0), entry k = k*P
+  {
+    const Fe one = fe_small(1);
+    fe_store_t(tbl, lane, nn, one);
+    fe_store_t(tbl + coord, lane, nn, one);
+    fe_store_t(tbl + 2 * coord, lane, nn, one);
+    fe_store_t(tbl + 3 * coord, lane, nn, fe_small(0));
+    Pt acc = P, e;
+    for (int k = 1; k < nb; ++k) {
+      if (k > 1) padd_ext(acc, acc, P);
+      to_niels(e, acc);
+      int32_t* t = tbl + k * entry;
+      fe_store_t(t, lane, nn, e.X);
+      fe_store_t(t + coord, lane, nn, e.Y);
+      fe_store_t(t + 2 * coord, lane, nn, e.Z);
+      fe_store_t(t + 3 * coord, lane, nn, e.T);
+    }
+  }
+
+  const int32_t* wl = win + (size_t)lane * nwin;
+  signed char sd[MAX_SIGNED_WINDOWS];
+  if (is_signed) {
+    const int h = 1 << (width - 1), full = 1 << width;
+    int carry = 0;
+    for (int w = 0; w < nwin; ++w) {
+      const int d = wl[w] + carry;
+      const int neg = d >= h;
+      sd[w] = (signed char)(d - neg * full);
+      carry = neg;
+    }
+  }
+
+  Pt Q;
+  Q.X = fe_small(0);
+  Q.Y = fe_small(1);
+  Q.Z = fe_small(1);
+  Q.T = fe_small(0);
+  for (int i = nwin - 1; i >= 0; --i) {
+    for (int j = 0; j < width; ++j) pdbl(Q, j == width - 1);
+    const int d = is_signed ? sd[i] : wl[i];
+    const int32_t s = -(int32_t)(d < 0);
+    const int a = (d ^ s) - s;
+    Pt e, t;
+    fe_load_t(e.X, tbl, lane, nn);
+    fe_load_t(e.Y, tbl + coord, lane, nn);
+    fe_load_t(e.Z, tbl + 2 * coord, lane, nn);
+    fe_load_t(e.T, tbl + 3 * coord, lane, nn);
+    for (int k = 1; k < nb; ++k) {
+      const int32_t m = -(int32_t)(a == k);
+      const int32_t* te = tbl + k * entry;
+      fe_load_t(t.X, te, lane, nn);
+      fe_load_t(t.Y, te + coord, lane, nn);
+      fe_load_t(t.Z, te + 2 * coord, lane, nn);
+      fe_load_t(t.T, te + 3 * coord, lane, nn);
+      fe_cmov(e.X, t.X, m);
+      fe_cmov(e.Y, t.Y, m);
+      fe_cmov(e.Z, t.Z, m);
+      fe_cmov(e.T, t.T, m);
+    }
+    // sign: swap Y+X / Y-X and negate 2dT where s == -1 (a no-op for
+    // unsigned windows, which are never negative)
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const int32_t p = e.X.v[k], q = e.Y.v[k];
+      e.X.v[k] = (q & s) | (p & ~s);
+      e.Y.v[k] = (p & s) | (q & ~s);
+      e.T.v[k] = (e.T.v[k] ^ s) - s;
+    }
+    madd(Q, e);
+  }
+  fe_store(out, lane, Q.X);
+  fe_store(out + plane, lane, Q.Y);
+  fe_store(out + 2 * plane, lane, Q.Z);
+  fe_store(out + 3 * plane, lane, Q.T);
+}
+
+inline int blocks_for(int n) { return (n + BLOCK - 1) / BLOCK; }
+
+}  // namespace zc
+
+// ---- launchers (plain C interface) ----------------------------------------
+
+extern "C" {
+
+const char* zc_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Writes the fold constants of p and r and the curve's d and 2d (host
+// pointers to 12, 12, 22 and 22 int32) into constant memory of the current
+// device.
+int zc_init(const int32_t* fold_p, const int32_t* fold_r, const int32_t* d,
+            const int32_t* d2) {
+  int32_t fold[2][zc::NC];
+  for (int i = 0; i < zc::NC; ++i) {
+    fold[0][i] = fold_p[i];
+    fold[1][i] = fold_r[i];
+  }
+  cudaError_t err = cudaMemcpyToSymbol(zc::c_fold, fold, sizeof(fold));
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(zc::c_d, d, zc::L * sizeof(int32_t));
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(zc::c_d2, d2, zc::L * sizeof(int32_t));
+  return static_cast<int>(err);
+}
+
+int zc_mul(const int32_t* a, const int32_t* b, int32_t* out, int n, int spec,
+           void* stream) {
+  zc::k_mul<<<zc::blocks_for(n), zc::BLOCK, 0,
+              static_cast<cudaStream_t>(stream)>>>(a, b, out, n, spec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int zc_pow(const int32_t* a, int32_t* out, int32_t* tbl, const int32_t* digits,
+           int nwin, int n, int spec, void* stream) {
+  zc::k_pow<<<zc::blocks_for(n), zc::BLOCK, 0,
+              static_cast<cudaStream_t>(stream)>>>(a, out, tbl, digits, nwin,
+                                                   n, spec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int zc_ladder(const int32_t* pts, const int32_t* win, int nwin, int width,
+              int is_signed, int32_t* tbl, int32_t* out, int n, void* stream) {
+  zc::k_ladder<<<zc::blocks_for(n), zc::BLOCK, 0,
+                 static_cast<cudaStream_t>(stream)>>>(pts, win, nwin, width,
+                                                      is_signed, tbl, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

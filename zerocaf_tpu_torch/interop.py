@@ -1,0 +1,56 @@
+"""State carried between the JAX package and the port: limbs and points as
+numpy arrays in the shared layout (int32, radix 2^12, limb axis last), and a
+check that both packages hold the same constants."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import constants as C
+from .config import NUM_LIMBS
+
+
+def limbs_from_numpy(arr, device=None) -> torch.Tensor:
+    """int32 [..., 22] numpy limbs -> tensor on ``device`` (a copy)."""
+    a = np.asarray(arr)
+    if a.dtype != np.int32 or a.ndim == 0 or a.shape[-1] != NUM_LIMBS:
+        raise ValueError(f"expected int32 [..., {NUM_LIMBS}], got "
+                         f"{a.dtype} {a.shape}")
+    return torch.tensor(a, device=device)
+
+
+def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def point_from_numpy(p, device=None) -> tuple[torch.Tensor, ...]:
+    """A 4-tuple of [..., 22] arrays, or one [..., 4, 22] array -> the
+    port's 4-tuple of tensors."""
+    if isinstance(p, (tuple, list)):
+        coords = [np.asarray(c) for c in p]
+    else:
+        a = np.asarray(p)
+        coords = [a[..., i, :] for i in range(4)]
+    if len(coords) != 4:
+        raise ValueError(f"expected 4 coordinates, got {len(coords)}")
+    return tuple(limbs_from_numpy(np.ascontiguousarray(c), device) for c in coords)
+
+
+def point_to_numpy(p) -> tuple[np.ndarray, ...]:
+    """The port's 4-tuple (or an EdwardsPoint) -> 4-tuple of numpy arrays."""
+    coords = p._tuple() if hasattr(p, "_tuple") else p
+    return tuple(limbs_to_numpy(c) for c in coords)
+
+
+def check_constants(ns) -> None:
+    """Assert that every constant the port uses equals the same-named value
+    of the namespace ``ns`` (for example ``zerocaf_tpu.constants``)."""
+    for name in C.LIMB_CONSTANT_NAMES:
+        mine = getattr(C, name)
+        theirs = np.asarray(getattr(ns, name))
+        if mine.shape != theirs.shape or not np.array_equal(mine, theirs):
+            raise AssertionError(f"constant {name} differs: {mine} vs {theirs}")
+    for name in C.INT_CONSTANT_NAMES:
+        if getattr(C, name) != getattr(ns, name):
+            raise AssertionError(f"constant {name} differs")

@@ -1,0 +1,407 @@
+"""Hand-written Hopper kernels K1-K4 and their plain PyTorch versions
+(zerocaf_tpu/ops/pallas/field_kernels.py counterpart).
+
+  K1 ``mul_tiled``                    a*b mod p or mod r
+  K2 ``pow_tiled``                    a^e for a static exponent, width-4 windows
+  K3 ``scalar_mul_windowed_stepped``  unsigned windowed ladder (width 1: the
+                                      oblivious bit ladder)
+  K4 ``scalar_mul_windowed_signed``   signed width-4 windows, 9-entry table
+
+The CUDA sources are ``zerocaf_tpu_torch/csrc/{field.cuh,field_kernels.cu}``.
+Each wrapper checks its tensors (int32, limb axis 22, contiguous, one device)
+and raises on anything else.  For CUDA tensors it launches its kernel, or
+raises if the kernel library cannot be built or the launch fails; for CPU
+tensors it runs the plain version beside it.  ``<wrapper>.launches`` counts
+kernel launches and nothing else.
+
+The plain versions use the kernels' algorithm and limb algebra -- the same
+schoolbook columns, the two-pass keep-top carries, the cascade folds and the
+single carry passes (``_c1``) at the same places -- so a kernel and its plain
+version agree limb for limb, not only canonically.  Laziness bounds (radix
+2^12, int32 columns), as in the JAX package:
+  * semi limbs are < 2^12.1 after a carry pass;
+  * multiply operands may be one add deep (<= 2^13.1): 22 * 2^26.2 < 2^30.7;
+  * square operands must be semi: 23 * 2^12.1 * 2^13.1 < 2^29.8;
+  * anything deeper gets one ``_c1`` pass.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ... import constants as C
+from .. import limb
+from ..limb import FIELD, ModSpec
+from . import build
+
+L = 22
+POW_WIDTH = 4
+MAX_TABLE = 17      # entries of the per-lane Niels table the kernel accepts
+MAX_SIGNED_WINDOWS = 256
+
+
+# ---------------------------------------------------------------------------
+# Shared checks and launch plumbing
+# ---------------------------------------------------------------------------
+
+
+def _check_limbs(name: str, *ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    for t in ts:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: expected int32 limbs, got {t.dtype}")
+        if t.dim() == 0 or t.shape[-1] != L:
+            raise ValueError(f"{name}: limb axis must be {L}, got {tuple(t.shape)}")
+        if t.shape != ts[0].shape:
+            raise ValueError(f"{name}: shapes differ: {tuple(t.shape)} vs "
+                             f"{tuple(ts[0].shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor must be contiguous")
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    """True where the plain version runs: the tensor lies on the CPU.  Any
+    other (checked) device is CUDA, where the kernel launches or raises."""
+    return t.device.type == "cpu"
+
+
+def _check_windows(name: str, windows: torch.Tensor, batch) -> None:
+    if windows.dtype != torch.int32:
+        raise TypeError(f"{name}: windows must be int32, got {windows.dtype}")
+    if tuple(windows.shape[:-1]) != tuple(batch) or windows.shape[-1] < 1:
+        raise ValueError(f"{name}: windows {tuple(windows.shape)} do not match "
+                         f"the point batch {tuple(batch)}")
+    if not windows.is_contiguous():
+        raise ValueError(f"{name}: windows must be contiguous")
+
+
+def _launch(name: str, device: torch.device, fn_name: str, *args) -> None:
+    """Call one launcher of the library on ``device``'s current stream and
+    raise if the launch was refused."""
+    lib = build.load(device)
+    cargs = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            cargs.append(ctypes.c_void_p(a.data_ptr()))
+        else:
+            cargs.append(ctypes.c_int(int(a)))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(*cargs, ctypes.c_void_p(stream))
+    build.check(lib, rc, name)
+
+
+# ---------------------------------------------------------------------------
+# Plain block algebra (mirrors csrc/field.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _c1(x):
+    """One keep-top carry pass (limbs |x| < 2^17 -> semi)."""
+    return limb.carry_keep_top(x, extra=0, passes=1)
+
+
+def _mulb(a, b, spec: ModSpec = FIELD):
+    """Multiply, each operand at most one add deep -> semi."""
+    return limb.reduce_to_semi_cascade(limb.school(a, b), spec)
+
+
+def _sqb(a, spec: ModSpec = FIELD):
+    """Square a semi operand -> semi."""
+    return limb.reduce_to_semi_cascade(limb.school_square(a), spec)
+
+
+def _mulb_n(lefts, rights):
+    """Independent multiplies as one stacked call (lanes are independent,
+    so the limbs equal those of separate _mulb calls)."""
+    return _mulb(torch.stack(lefts), torch.stack(rights)).unbind(0)
+
+
+def _pdbl_block(P, with_t: bool = True):
+    """dbl-2008-hwcd doubling (a = -1) on (X, Y, Z[, T]); T only if with_t."""
+    X, Y, Z = P[0], P[1], P[2]
+    A, B, Zs = _sqb(torch.stack([X, Y, Z])).unbind(0)
+    Cc = Zs + Zs                       # 2-deep
+    S = _c1(X + Y)                     # semi (square operand)
+    E = _c1(_sqb(S) - A - B)           # 3-deep -> carry
+    G = B - A                          # 2-deep
+    F = _c1(G - Cc)                    # 4-deep -> carry
+    H = (-A) - B                       # 2-deep
+    if with_t:
+        return _mulb_n([E, G, F, E], [F, H, G, H])
+    return _mulb_n([E, G, F], [F, H, G])
+
+
+def _madd_block(Q, e):
+    """Extended + projective-Niels addition, 8M.  e = (Y+X, Y-X, Z, 2dT),
+    all semi; unified (identity entries and Q == +-e work)."""
+    X1, Y1, Z1, T1 = Q
+    PP, MM, TT, ZZ = _mulb_n([Y1 + X1, Y1 - X1, T1, Z1], [e[0], e[1], e[3], e[2]])
+    ZZ2 = ZZ + ZZ
+    E = _c1(PP - MM)
+    F = _c1(ZZ2 - TT)
+    G = _c1(ZZ2 + TT)
+    H = PP + MM                        # 2-deep
+    return _mulb_n([E, G, F, E], [F, H, G, H])
+
+
+def _padd_ext_block(P, Q):
+    """Unified extended-extended HWCD addition (table build only)."""
+    X1, Y1, Z1, T1 = P
+    X2, Y2, Z2, T2 = Q
+    A, B, TT, Dd, S = _mulb_n([X1, Y1, T1, Z1, X1 + Y1], [X2, Y2, T2, Z2, X2 + Y2])
+    Cc = _mulb(TT, limb.const(C.EDWARDS_D_LIMBS, T1.device))
+    E = _c1(S - A - B)
+    F = _c1(Dd - Cc)
+    G = _c1(Dd + Cc)
+    H = A + B
+    return _mulb_n([E, G, F, E], [F, H, G, H])
+
+
+def _niels_table(pt, nb: int):
+    """Entries 0..nb-1: entry 0 is the Niels identity (1, 1, 1, 0), entry k
+    is k*P as (Y+X, Y-X, Z, 2dT)."""
+    X = pt[0]
+    zero = torch.zeros_like(X)
+    one = limb.one_like(X)
+    d2 = limb.const(C.EDWARDS_2D_LIMBS, X.device)
+    tbl = [(one, one, one, zero)]
+    ext = tuple(pt)
+    for k in range(1, nb):
+        if k > 1:
+            ext = _padd_ext_block(ext, pt)
+        x, y, z, t = ext
+        tbl.append((_c1(y + x), _c1(y - x), z, _mulb(t, d2)))
+    return tbl
+
+
+def _select_entry(tbl, digit):
+    """One-hot read of every entry: entry ``digit`` of the table."""
+    e = tbl[0]
+    for k in range(1, len(tbl)):
+        m = (digit == k)[..., None]
+        e = tuple(torch.where(m, tk, ek) for tk, ek in zip(tbl[k], e))
+    return e
+
+
+def identity_like(p):
+    """The extended identity (0, 1, 1, 0) with the shape and device of the
+    point ``p``."""
+    zero = torch.zeros_like(p[0])
+    one = limb.one_like(p[0])
+    return (zero, one, one, zero)
+
+
+def _signed_recode(win: torch.Tensor, width: int) -> torch.Tensor:
+    """Unsigned width-w windows (LSB-first) -> signed digits in
+    [-2^(w-1), 2^(w-1)).  The final carry out is dropped; it is zero for
+    canonical scalars (< r < 2^250 with 63 width-4 windows)."""
+    h = 1 << (width - 1)
+    full = 1 << width
+    carry = torch.zeros_like(win[..., 0])
+    out = []
+    for d in win.unbind(-1):
+        d = d + carry
+        neg = (d >= h).to(win.dtype)
+        out.append(d - neg * full)
+        carry = neg
+    return torch.stack(out, dim=-1)
+
+
+def _flat(t: torch.Tensor) -> int:
+    return t.numel() // t.shape[-1]
+
+
+# ---------------------------------------------------------------------------
+# K1: field / scalar multiply
+# ---------------------------------------------------------------------------
+
+
+def mul_tiled_ref(a, b, spec: ModSpec = FIELD):
+    """Plain version of K1."""
+    return _mulb(a, b, spec)
+
+
+def mul_tiled(a, b, spec: ModSpec = FIELD):
+    """a * b (mod spec.m), semi-reduced [..., 22] in and out (K1)."""
+    _check_limbs("mul_tiled", a, b)
+    if _on_cpu(a):
+        return mul_tiled_ref(a, b, spec)
+    out = torch.empty_like(a)
+    n = _flat(a)
+    if n:
+        _launch("mul_tiled", a.device, "zc_mul", a, b, out, n, spec.kernel_id)
+        mul_tiled.launches += 1
+    return out
+
+
+mul_tiled.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: fixed-exponent power chain
+# ---------------------------------------------------------------------------
+
+
+def pow_digits(e: int, width: int = POW_WIDTH) -> list[int]:
+    """The exponent's width-bit digits, most significant first."""
+    if e < 1:
+        raise ValueError(f"pow_tiled needs a positive exponent, got {e}")
+    nwin = -(-e.bit_length() // width)
+    mask = (1 << width) - 1
+    return [(e >> (width * (nwin - 1 - i))) & mask for i in range(nwin)]
+
+
+def pow_tiled_ref(a, e: int, spec: ModSpec = FIELD):
+    """Plain version of K2: table a^0..a^15, seed from the first digit, then
+    per digit 4 squarings and, for a nonzero digit, one table multiply."""
+    digits = pow_digits(e)
+    tbl = [limb.one_like(a), a]
+    for _ in range(2, 1 << POW_WIDTH):
+        tbl.append(_mulb(tbl[-1], a, spec))
+    r = tbl[digits[0]]
+    for d in digits[1:]:
+        for _ in range(POW_WIDTH):
+            r = _sqb(r, spec)
+        if d:
+            r = _mulb(r, tbl[d], spec)
+    return r
+
+
+_POW_DIGITS: dict = {}
+
+
+def pow_tiled(a, e: int, spec: ModSpec = FIELD):
+    """a^e (mod spec.m) for a static exponent e > 0 (K2)."""
+    _check_limbs("pow_tiled", a)
+    if _on_cpu(a):
+        return pow_tiled_ref(a, e, spec)
+    key = (e, a.device)
+    digits = _POW_DIGITS.get(key)
+    if digits is None:
+        digits = _POW_DIGITS[key] = torch.tensor(pow_digits(e), dtype=torch.int32,
+                                                 device=a.device)
+    out = torch.empty_like(a)
+    n = _flat(a)
+    if n:
+        tbl = torch.empty((1 << POW_WIDTH, L, n), dtype=torch.int32, device=a.device)
+        _launch("pow_tiled", a.device, "zc_pow", a, out, tbl, digits,
+                digits.numel(), n, spec.kernel_id)
+        pow_tiled.launches += 1
+    return out
+
+
+pow_tiled.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4: windowed variable-base scalar multiplication
+# ---------------------------------------------------------------------------
+
+
+def scalar_mul_windowed_stepped_ref(pt, windows, width: int = 4):
+    """Plain version of K3: per window (MSB first) ``width`` doublings, a
+    one-hot read of all 2^width Niels entries and one 8M addition."""
+    tbl = _niels_table(pt, 1 << width)
+    Q = identity_like(pt)
+    for i in reversed(range(windows.shape[-1])):
+        for j in range(width):
+            Q = _pdbl_block(Q, with_t=(j == width - 1))
+        Q = _madd_block(Q, _select_entry(tbl, windows[..., i]))
+    return Q
+
+
+def scalar_mul_windowed_signed_ref(pt, windows, width: int = 4):
+    """Plain version of K4: signed recode, then per window ``width``
+    doublings, a one-hot read of all 2^(w-1)+1 entries, the sign applied by
+    swapping Y+X / Y-X and negating 2dT, and one 8M addition."""
+    digits = _signed_recode(windows, width)
+    tbl = _niels_table(pt, (1 << (width - 1)) + 1)
+    Q = identity_like(pt)
+    for i in reversed(range(digits.shape[-1])):
+        for j in range(width):
+            Q = _pdbl_block(Q, with_t=(j == width - 1))
+        d = digits[..., i]
+        s = (d < 0)[..., None]
+        e = _select_entry(tbl, d.abs())
+        e = (torch.where(s, e[1], e[0]), torch.where(s, e[0], e[1]), e[2],
+             torch.where(s, -e[3], e[3]))
+        Q = _madd_block(Q, e)
+    return Q
+
+
+def _ladder(wrapper, pt, windows, width: int, signed: bool):
+    name = wrapper.__name__
+    _check_limbs(name, *pt)
+    if len(pt) != 4:
+        raise ValueError(f"{name}: expected 4 coordinates, got {len(pt)}")
+    batch = pt[0].shape[:-1]
+    _check_windows(name, windows, batch)
+    nb = (1 << (width - 1)) + 1 if signed else 1 << width
+    if not (1 + signed <= width and nb <= MAX_TABLE):
+        raise ValueError(f"{name}: unsupported width {width}")
+    nwin = windows.shape[-1]
+    if signed and nwin > MAX_SIGNED_WINDOWS:
+        raise ValueError(f"{name}: at most {MAX_SIGNED_WINDOWS} windows")
+    if windows.device != pt[0].device:
+        raise ValueError(f"{name}: windows on {windows.device}, points on "
+                         f"{pt[0].device}")
+    if _on_cpu(pt[0]):
+        ref = (scalar_mul_windowed_signed_ref if signed
+               else scalar_mul_windowed_stepped_ref)
+        return ref(pt, windows, width)
+    dev = pt[0].device
+    n = _flat(pt[0])
+    pts = torch.stack(pt)                            # [4, ..., 22]
+    out = torch.empty_like(pts)
+    if n:
+        tbl = torch.empty((nb, 4, L, n), dtype=torch.int32, device=dev)
+        _launch(name, dev, "zc_ladder", pts, windows, nwin, width, int(signed),
+                tbl, out, n)
+        wrapper.launches += 1
+    return tuple(out.unbind(0))
+
+
+def scalar_mul_windowed_stepped(pt, windows, width: int = 4):
+    """k*P over unsigned width-bit windows [..., nwin] (LSB first) with a
+    2^width-entry per-lane Niels table (K3).  At width 1 the windows are the
+    scalar's bits: the 250-step oblivious ladder of ``EdwardsPoint.__mul__``.
+    pt: 4-tuple of [..., 22] int32; returns the 4-tuple k*P."""
+    return _ladder(scalar_mul_windowed_stepped, pt, windows, width, False)
+
+
+scalar_mul_windowed_stepped.launches = 0
+
+
+def scalar_mul_windowed_signed(pt, windows, width: int = 4):
+    """k*P over unsigned width-bit windows recoded in-kernel to signed
+    digits, with a (2^(w-1)+1)-entry per-lane Niels table (K4).  Equal to
+    K3 for canonical scalars."""
+    return _ladder(scalar_mul_windowed_signed, pt, windows, width, True)
+
+
+scalar_mul_windowed_signed.launches = 0
+
+
+def kernel_wrappers():
+    """The four wrappers, in kernel order K1..K4."""
+    return (mul_tiled, pow_tiled, scalar_mul_windowed_stepped,
+            scalar_mul_windowed_signed)
+
+
+def reset_launch_counts() -> None:
+    for fn in kernel_wrappers():
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
+

@@ -1,0 +1,69 @@
+"""Serving-shape API: pinned batch, wire in, wire out
+(zerocaf_tpu/serving.py counterpart).
+
+An ``Engine`` serves fixed-size batches of 32-byte wire arrays on one
+device.  Ragged traffic is padded to the engine batch with ``pad_batch``.
+This slice serves ``dh`` and ``hash_to_group``; ``keygen`` (fixed-base comb),
+``msm`` and the pipelined wrapper are later slices (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models import ristretto as _ri
+from .models.edwards import EdwardsPoint
+from .scalar import Scalar
+
+
+def pad_batch(arr: np.ndarray, batch: int):
+    """Pad axis 0 with zeros up to ``batch``; returns (padded, n_valid)."""
+    n = arr.shape[0]
+    if n > batch:
+        raise ValueError(f"batch {n} exceeds engine batch {batch}")
+    if n == batch:
+        return arr, n
+    pad = np.zeros((batch - n,) + arr.shape[1:], arr.dtype)
+    return np.concatenate([arr, pad], axis=0), n
+
+
+class Engine:
+    """Pinned-batch serving engine on one device.
+
+    batch:  lanes per call (pad ragged requests with pad_batch).  32768 is
+            the JAX package's default; on the H100 it is the ECDH serving
+            size that chip_smoke.py drives.
+    device: where the wire arrays are computed; inputs are moved there.
+    """
+
+    def __init__(self, batch: int = 32768, device=None):
+        self.batch = batch
+        self.device = torch.device("cpu" if device is None else device)
+
+    def _wire(self, arr, width: int) -> torch.Tensor:
+        t = torch.as_tensor(arr, dtype=torch.uint8).to(self.device)
+        if tuple(t.shape) != (self.batch, width):
+            raise ValueError(f"expected [{self.batch}, {width}] uint8, got "
+                             f"{tuple(t.shape)}; pad with pad_batch")
+        return t.contiguous()
+
+    def dh(self, sk32, peer32):
+        """[batch, 32] secret scalar bytes + [batch, 32] peer Ristretto wire
+        -> ([batch, 32] shared wire, ok).  ok is False for invalid peer
+        encodings (those lanes hold garbage).
+
+        The secret multiply is the signed windowed kernel (K4): its one-hot
+        table read touches every entry for every lane, so the access
+        pattern does not depend on the secret; it never goes through a
+        gather.  Non-canonical secrets are reduced mod r, as in the JAX
+        package."""
+        s, _ = Scalar.from_bytes(self._wire(sk32, 32))
+        p, ok = _ri._decompress(self._wire(peer32, 32))
+        q = EdwardsPoint(*p).mul_windowed(s)
+        return _ri._compress(q._tuple()), ok
+
+    def hash_to_group(self, uniform64):
+        """[batch, 64] uniform bytes -> [batch, 32] Ristretto wire."""
+        p = _ri.RistrettoPoint.from_uniform_bytes(self._wire(uniform64, 64))
+        return p.compress()
