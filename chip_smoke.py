@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ECDH serving path once on one CUDA card.
+"""Drive the PyTorch port's ECDH serving path and its MSM path once on one
+CUDA card.
 
     python3 chip_smoke.py
 
 Phases, in order (any failure raises, so the exit code is non-zero):
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: compile (or load) the kernel library from zerocaf_tpu_torch/csrc;
+  2. build: compile (or load) the kernel libraries from zerocaf_tpu_torch/csrc,
+     one nvcc process per source, all at once;
   3. kernels: K1-K4 against their plain PyTorch versions at the main path's
      shapes, limb for limb, with CUDA-event times of both;
   4. vectors: the 16 Ristretto small multiples, the Elligator sage vector
@@ -17,10 +19,27 @@ Phases, in order (any failure raises, so the exit code is non-zero):
   6. Engine.hash_to_group at batch 32768, sampled lanes against the oracle;
   7. launch counts: every kernel must have run during phases 5-6;
   8. rates: dh and hash_to_group ops/s (median of 11 calls on the host
-     clock, with the min and max) and ladder mults/s.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.  Needs a CUDA device: there is
-no CPU path.
+     clock, with the min and max) and ladder mults/s;
+  9. K5 against its plain version at 2^16 lanes;
+ 10. K7 and K8 against their plain versions at 2^14 points, c = 6, k = 4;
+ 11. Engine.msm at batch 2^20, c = 6, the MSM main path: points k'_i B
+     made by the ladder (K3) and encoded, seeded canonical scalars; the
+     aggregate equals the oracle's; an invalid lane makes ok false; pad_msm
+     of 2^20 - 3 lanes equals the MSM of those lanes.  K5, K7 and K8 must
+     each have launched during these three calls (counts reset just before
+     them and read just after);
+ 12. at 2^14 points the scan route (dense=False) and the dense route give
+     the same bytes, equal to the oracle's (launches printed apart);
+ 13. at the shapes of the 2^20 path: K7, and K5 on the first round of the
+     lane reduction, against their plain versions, with K8's time;
+ 14. rates: Engine.msm points/s at 2^20 for c = 5, 6 and 7 (median of 5
+     calls on the host clock, with the min and max);
+ 15. one Engine.msm call at 2^20 under torch.profiler: device busy share
+     and the kernels that take the most device time.
+The line before the last is a JSON object with one entry per kernel, with
+its bound (the larger of its bytes over the memory rate and its integer
+multiply-adds over the card's multiply-add rate); the last line is
+{"ok": true, "device": {...}}.  Needs a CUDA device: there is no CPU path.
 """
 
 from __future__ import annotations
@@ -33,13 +52,37 @@ import numpy as np
 import torch
 
 BATCH = 32768                 # Engine default: the serving batch
-MUL_LANES = 1 << 16           # K1 checked at 2^16 lanes
+MUL_LANES = 1 << 16           # K1 and K5 checked at 2^16 lanes
 SAMPLE = 32                   # lanes checked against the oracle
 TOLERANCE = 0                 # integer limb algebra: kernels equal plain versions
 RATE_CALLS = 11               # serving calls timed for each rate (median)
+MSM_BATCH = 1 << 20           # the flagship MSM size
+MSM_SMALL = 1 << 14           # K7/K8 checks and the route cross-check
+MSM_C = 6                     # Engine.msm's default window width
+MSM_SWEEP = (5, 6, 7)         # window widths timed at 2^20
+MSM_RATE_CALLS = 5
 SEED = 20261016
+ECDH_KERNELS = ("mul_tiled", "pow_tiled", "scalar_mul_windowed_stepped",
+                "scalar_mul_windowed_signed")
+MSM_KERNELS = ("padd_tiled", "bucket_accum_all", "combine_tables")
 SOURCE = "zerocaf_tpu_torch/csrc/field_kernels.cu"
+MSM_SOURCE = "zerocaf_tpu_torch/csrc/msm_kernels.cu"
 TPU_KERNELS = "zerocaf_tpu/ops/pallas/field_kernels.py"
+TPU_MSM_KERNELS = "zerocaf_tpu/ops/pallas/msm_kernels.py"
+
+# Work model of the bounds.  Integer multiply-adds of one field multiply:
+# the 22 x 22 schoolbook plus the three folds (12 x (23 + 14 + 5)); of one
+# square: 22 + 231 products plus the folds.  Point operations in multiplies
+# and squares as in csrc/field.cuh.
+IMAD_MUL = 22 * 22 + 12 * (23 + 14 + 5)
+IMAD_SQ = 22 + 231 + 12 * (23 + 14 + 5)
+IMAD_PADD = 10 * IMAD_MUL                       # padd_ext
+IMAD_MADD = 8 * IMAD_MUL                        # madd
+IMAD_PDBL_T = 4 * IMAD_SQ + 4 * IMAD_MUL        # pdbl with T
+IMAD_PDBL = 4 * IMAD_SQ + 3 * IMAD_MUL          # pdbl without T
+PT_BYTES = 4 * 22 * 4                           # one extended point
+HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
+IMAD_PER_SM_CLOCK = 64    # 32-bit integer multiply-add, compute capability 9.0
 
 # Reference vectors: compressed k*B for k = 0..15, and the Elligator sage
 # vector (input bytes, expected point as 52-bit limbs).
@@ -107,6 +150,21 @@ def call_ms(fn, reps: int) -> list[float]:
     return sorted(times)
 
 
+class Roofline:
+    """The least time the card could take for some work: the larger of its
+    bytes over the memory rate and its integer multiply-adds over the
+    card's rate (SMs x 64 a clock x the maximum SM clock)."""
+
+    def __init__(self, sms: int, max_sm_mhz: float):
+        self.imad_per_s = sms * IMAD_PER_SM_CLOCK * max_sm_mhz * 1e6
+
+    def __call__(self, imads: float, nbytes: float) -> dict:
+        ops_ms = imads / self.imad_per_s * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        return {"bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
 def max_abs_err(got, want) -> int:
     if isinstance(got, tuple):
         return max(max_abs_err(g, w) for g, w in zip(got, want))
@@ -123,6 +181,7 @@ def main() -> None:
     from zerocaf_tpu_torch.ops import limb
     from zerocaf_tpu_torch.ops.kernels import build
     from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
+    from zerocaf_tpu_torch.ops.kernels import msm_kernels as mk
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
@@ -133,14 +192,23 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
     print(card, flush=True)
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    roof = Roofline(sms, max_mhz)
     phase("device", f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
-          f" torch {torch.__version__} cuda {torch.version.cuda}")
+          f" torch {torch.__version__} cuda {torch.version.cuda}, {sms} SMs, "
+          f"max SM clock {max_mhz:.0f} MHz: {roof.imad_per_s / 1e12:.2f} T int32 "
+          f"multiply-adds/s")
 
     # 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    path, nvcc_s, log = build.build()
-    build.load(dev)
-    phase("build", f"{path.name} nvcc {nvcc_s:.1f}s, ready in "
+    paths, nvcc_s, log = build.build()
+    for stem in paths:
+        build.load(dev, stem)
+    phase("build", f"{', '.join(p.name for p in paths.values())}: nvcc "
+          f"{nvcc_s:.1f}s (all sources at once), ready in "
           f"{time.perf_counter() - t0:.1f}s")
     for line in log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers",
@@ -156,12 +224,14 @@ def main() -> None:
     # 3. kernels against their plain versions ------------------------------
     results = {}
 
-    def record(wrapper, err, ms=None, plain_ms=None):
-        r = results.setdefault(wrapper.__name__, {"max_abs_err": 0, "ms": None,
-                                                  "plain_ms": None})
+    def record(wrapper, err, ms=None, plain_ms=None, bound=None):
+        r = results.setdefault(wrapper.__name__, {
+            "max_abs_err": 0, "ms": None, "plain_ms": None, "bound_ms": None,
+            "bound_by": None, "library_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if ms is not None:
             r["ms"], r["plain_ms"] = ms, plain_ms
+            r.update(bound)
 
     for spec in (limb.FIELD, limb.SCALAR):
         a = rand_elems(MUL_LANES, spec)
@@ -175,7 +245,8 @@ def main() -> None:
         if err > TOLERANCE:
             raise AssertionError(f"K1 differs from its plain version ({spec.name})")
         if spec is limb.FIELD:                      # the main path's modulus
-            record(fk.mul_tiled, err, ms, plain)
+            record(fk.mul_tiled, err, ms, plain,
+                   roof(MUL_LANES * IMAD_MUL, 3 * MUL_LANES * 22 * 4))
         else:
             record(fk.mul_tiled, err)
 
@@ -192,7 +263,11 @@ def main() -> None:
             ms = cuda_ms(lambda: fk.pow_tiled(x, e), 10)
             plain = cuda_ms(lambda: fk.pow_tiled_ref(x, e), 2)
             msg += f", kernel {ms:.4f} ms, plain {plain:.4f} ms"
-            record(fk.pow_tiled, err, ms, plain)
+            digits = fk.pow_digits(e)
+            per_lane = (14 * IMAD_MUL + 4 * (len(digits) - 1) * IMAD_SQ
+                        + sum(1 for d in digits[1:] if d) * IMAD_MUL)
+            record(fk.pow_tiled, err, ms, plain,
+                   roof(BATCH * per_lane, 2 * BATCH * 22 * 4 + 4 * len(digits)))
         else:
             record(fk.pow_tiled, err)
         phase("K2 pow_tiled", msg)
@@ -201,13 +276,18 @@ def main() -> None:
     pts = zt.RistrettoPoint.from_uniform_bytes(rand_bytes((BATCH, 64))).point._tuple()
     pts = tuple(c.contiguous() for c in pts)
     s = zt.Scalar.from_bytes_wide(rand_bytes((BATCH, 64)))
+    # multiply-adds per lane: the Niels table, then per window the
+    # doublings (T on the last) and one Niels addition
+    k3_lane = IMAD_MUL + 250 * (IMAD_PDBL_T + IMAD_MADD)
+    k4_lane = (7 * IMAD_PADD + 8 * IMAD_MUL
+               + 63 * (3 * IMAD_PDBL + IMAD_PDBL_T + IMAD_MADD))
     ladder_cases = (
         (fk.scalar_mul_windowed_stepped, fk.scalar_mul_windowed_stepped_ref,
-         s.into_bits(250), 1, "K3 ladder (width 1)"),
+         s.into_bits(250), 1, "K3 ladder (width 1)", k3_lane),
         (fk.scalar_mul_windowed_signed, fk.scalar_mul_windowed_signed_ref,
-         s.windows(4, 63), 4, "K4 signed windows (width 4)"),
+         s.windows(4, 63), 4, "K4 signed windows (width 4)", k4_lane),
     )
-    for wrapper, ref, win, width, label in ladder_cases:
+    for wrapper, ref, win, width, label, per_lane in ladder_cases:
         got = wrapper(pts, win, width)
         want = ref(pts, win, width)
         err = max_abs_err(got, want)
@@ -217,7 +297,8 @@ def main() -> None:
               f"kernel {ms:.3f} ms, plain {plain:.3f} ms")
         if err > TOLERANCE:
             raise AssertionError(f"{label} differs from its plain version")
-        record(wrapper, err, ms, plain)
+        record(wrapper, err, ms, plain,
+               roof(BATCH * per_lane, BATCH * (2 * PT_BYTES + 4 * win.shape[-1])))
     torch.cuda.synchronize()
 
     # 4. vectors -----------------------------------------------------------
@@ -263,7 +344,7 @@ def main() -> None:
     h2g = eng.hash_to_group(torch.as_tensor(uniform))
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t_main
-    counts = fk.launch_counts()
+    counts = {k: v for k, v in fk.launch_counts().items() if k in ECDH_KERNELS}
 
     if not (bool(ok_ab.all()) and bool(ok_ba.all())):
         raise AssertionError("dh rejected a valid peer key")
@@ -312,16 +393,279 @@ def main() -> None:
     phase("rates", f"{card}: {', '.join(rates)}, ladder {BATCH / k3_ms * 1e3:.0f} "
           f"mults/s, signed windowed {BATCH / k4_ms * 1e3:.0f} mults/s, batch {BATCH}")
 
-    replaces = {"mul_tiled": 1133, "pow_tiled": 1030,
-                "scalar_mul_windowed_stepped": 704,
-                "scalar_mul_windowed_signed": 825}
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": f"{TPU_KERNELS}:{line}", "launches": counts[name],
-                **results[name]} for name, line in replaces.items()]
+    counts.update(msm_phases(dev, rng, roof, card, pts, record))
+
+    replaces = {"mul_tiled": (SOURCE, TPU_KERNELS, 1133),
+                "pow_tiled": (SOURCE, TPU_KERNELS, 1030),
+                "scalar_mul_windowed_stepped": (SOURCE, TPU_KERNELS, 704),
+                "scalar_mul_windowed_signed": (SOURCE, TPU_KERNELS, 825),
+                "padd_tiled": (SOURCE, TPU_KERNELS, 313),
+                "bucket_accum_all": (MSM_SOURCE, TPU_MSM_KERNELS, 392),
+                "combine_tables": (MSM_SOURCE, TPU_MSM_KERNELS, 247)}
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": f"{tpu}:{line}", "launches": counts[name],
+                **results[name]} for name, (src, tpu, line) in replaces.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def msm_inputs(pt, scalars, c: int):
+    """The dense route's K7 inputs for points pt and Scalars, as
+    parallel/msm.py builds them: (stacked points, grouped digits, nb,
+    lanes, nwin)."""
+    import importlib
+
+    from zerocaf_tpu_torch.ops.kernels import msm_kernels as mk
+
+    tmsm = importlib.import_module("zerocaf_tpu_torch.parallel.msm")
+    nwin = tmsm.nwin_for(c)
+    dig = tmsm.dense_digits(scalars.windows(c, nwin), c, nwin)
+    return (torch.stack(pt), dig, (1 << (c - 1)) + 1,
+            mk.dense_lanes(dig.shape[-1]), nwin)
+
+
+def msm_counts(fk, mk) -> dict[str, int]:
+    """The launch counts of K5, K7 and K8."""
+    return {k: v for k, v in {**fk.launch_counts(), **mk.launch_counts()}.items()
+            if k in MSM_KERNELS}
+
+
+def padd_ref_rows(fk, a, b, rows: int = 256):
+    """K5's plain version on [E, W, 22] operands, ``rows`` of E at a time:
+    its [.., 22, 22] products of all lanes at once would not fit the card."""
+    parts = [fk.padd_tiled_ref(tuple(c[i:i + rows] for c in a),
+                               tuple(c[i:i + rows] for c in b))
+             for i in range(0, a[0].shape[0], rows)]
+    return tuple(torch.cat(cs) for cs in zip(*parts))
+
+
+def k7_work(dig_g, nb: int, lanes: int) -> tuple[float, float]:
+    """(multiply-adds, bytes) of K7 on these digits: one padd_ext per
+    nonzero digit; points and digits read once, tables written once."""
+    ngrp, k, n = dig_g.shape
+    nonzero = int((dig_g != 0).sum().item())
+    return (nonzero * IMAD_PADD,
+            n * PT_BYTES + 4 * dig_g.numel() + ngrp * k * nb * lanes * PT_BYTES)
+
+
+def k8_work(nwin: int, nb: int, c: int) -> tuple[float, float]:
+    """(multiply-adds, bytes) of K8: 2(nb-1) additions per window, then per
+    window c doublings and one addition."""
+    imads = nwin * (2 * (nb - 1) * IMAD_PADD + (c - 1) * IMAD_PDBL + IMAD_PDBL_T
+                    + IMAD_PADD)
+    return imads, nwin * nb * PT_BYTES + PT_BYTES
+
+
+def msm_phases(dev, rng, roof, card, ecdh_pts, record) -> dict[str, int]:
+    """Phases 9-15: K5, K7 and K8 against their plain versions, Engine.msm
+    at 2^20 against the oracle, the route cross-check, the rates and the
+    profile.  Returns the launch counts of K5, K7 and K8 in the three
+    Engine.msm calls of phase 11, the MSM main path."""
+    import importlib
+
+    import zerocaf_tpu_torch as zt
+    from zerocaf_tpu_torch import oracle as o
+    from zerocaf_tpu_torch.models import ristretto as ri
+    from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
+    from zerocaf_tpu_torch.ops.kernels import msm_kernels as mk
+
+    tmsm = importlib.import_module("zerocaf_tpu_torch.parallel.msm")
+
+    # 9. K5 at 2^16 lanes: group points, half of them negated (signed limbs)
+    p = tuple(torch.cat([c, c]) for c in ecdh_pts)
+    q = tuple(torch.roll(c, 1, 0) for c in p)
+    p = (torch.cat([-p[0][:BATCH], p[0][BATCH:]]), p[1], p[2],
+         torch.cat([-p[3][:BATCH], p[3][BATCH:]]))
+    err = max_abs_err(fk.padd_tiled(p, q), fk.padd_tiled_ref(p, q))
+    ms = cuda_ms(lambda: fk.padd_tiled(p, q), 20)
+    plain = cuda_ms(lambda: fk.padd_tiled_ref(p, q), 3)
+    phase("K5 padd_tiled", f"{MUL_LANES} lanes: max_abs_err {err} (tolerance "
+          f"{TOLERANCE}), kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    if err > TOLERANCE:
+        raise AssertionError("K5 differs from its plain version")
+    record(fk.padd_tiled, err)           # timed at the main path's shape below
+
+    # the MSM inputs: k'_i from seeded bytes, P_i = k'_i B by the ladder
+    seeds_k = rng.integers(0, 256, (MSM_BATCH, 64), dtype=np.uint8)
+    seeds_s = rng.integers(0, 256, (MSM_BATCH, 64), dtype=np.uint8)
+    t0 = time.perf_counter()
+    kp = zt.Scalar.from_bytes_wide(torch.as_tensor(seeds_k).to(dev))
+    pts = (zt.EdwardsPoint.basepoint((MSM_BATCH,), dev) * kp)._tuple()
+    wire = ri._compress(pts)
+    sc = zt.Scalar.from_bytes_wide(torch.as_tensor(seeds_s).to(dev)).to_bytes()
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    k_int = [int.from_bytes(r.tobytes(), "little") % o.R for r in seeds_k]
+    s_int = [int.from_bytes(r.tobytes(), "little") % o.R for r in seeds_s]
+    if sc[7].cpu().numpy().tobytes() != s_int[7].to_bytes(32, "little"):
+        raise AssertionError("scalar bytes")
+
+    def oracle_wire(n):
+        total = sum(a * b for a, b in zip(k_int[:n], s_int[:n])) % o.R
+        return o.ristretto_compress(o.scalar_mul(o.BASEPOINT, total))
+
+    phase("msm inputs", f"{MSM_BATCH} points k'B by the ladder and encoded, "
+          f"{MSM_BATCH} scalars, in {make_s:.2f}s")
+
+    # 10. K7 and K8 at 2^14 points, c = 6
+    small = tuple(c[:MSM_SMALL].contiguous() for c in pts)
+    s_small = zt.Scalar.from_bytes(sc[:MSM_SMALL])[0]
+    pst, dig, nb, lanes, nwin = msm_inputs(small, s_small, MSM_C)
+    tbl = mk.bucket_accum_all(pst, dig, nb, lanes)
+    err7 = max_abs_err(tbl, mk.bucket_accum_all_ref(pst, dig, nb, lanes))
+    ms7 = cuda_ms(lambda: mk.bucket_accum_all(pst, dig, nb, lanes), 5)
+    plain7 = cuda_ms(lambda: mk.bucket_accum_all_ref(pst, dig, nb, lanes), 1)
+    phase("K7 bucket_accum_all", f"{MSM_SMALL} points, c {MSM_C}, k "
+          f"{tmsm.DENSE_K}, {lanes} lanes: max_abs_err {err7} (tolerance "
+          f"{TOLERANCE}), kernel {ms7:.3f} ms, plain {plain7:.3f} ms")
+    arr = tbl.view(-1, lanes, 4, 22)
+    red = tmsm._lane_reduce(tuple(arr[:, :, j] for j in range(4)))
+    tables = tuple(t.reshape(-1, nb, 22)[:nwin].contiguous() for t in red)
+    err8 = max_abs_err(mk.combine_tables(tables, nb, nwin, MSM_C),
+                       mk.combine_tables_ref(tables, nb, nwin, MSM_C))
+    ms8 = cuda_ms(lambda: mk.combine_tables(tables, nb, nwin, MSM_C), 5)
+    plain8 = cuda_ms(lambda: mk.combine_tables_ref(tables, nb, nwin, MSM_C), 1)
+    phase("K8 combine_tables", f"nwin {nwin}, nb {nb}: max_abs_err {err8} "
+          f"(tolerance {TOLERANCE}), kernel {ms8:.3f} ms, plain {plain8:.3f} ms")
+    if err7 > TOLERANCE or err8 > TOLERANCE:
+        raise AssertionError("K7 or K8 differs from its plain version")
+    record(mk.combine_tables, err8, ms8, plain8, roof(*k8_work(nwin, nb, MSM_C)))
+    record(mk.bucket_accum_all, err7)
+    torch.cuda.synchronize()
+
+    # 11. Engine.msm at 2^20: the main path, with its own launch counts
+    eng = zt.Engine(batch=MSM_BATCH, device=dev)
+    bad = wire.clone()
+    bad[3] = 0xFF                                   # non-canonical encoding
+    n_pad = MSM_BATCH - 3
+    p_pad, s_pad, n_valid = zt.pad_msm(wire[:n_pad].cpu().numpy(),
+                                       sc[:n_pad].cpu().numpy(), MSM_BATCH)
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    mk.reset_launch_counts()
+    t_main = time.perf_counter()
+    got, ok = eng.msm(wire, sc)
+    _, ok_bad = eng.msm(bad, sc)
+    got_pad, ok_pad = eng.msm(p_pad, s_pad)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t_main
+    counts = msm_counts(fk, mk)
+
+    if not bool(ok) or bool(ok_bad) or not bool(ok_pad) or n_valid != n_pad:
+        raise AssertionError(f"msm ok flags: {bool(ok)}, invalid lane "
+                             f"{bool(ok_bad)}, padded {bool(ok_pad)}")
+    if got.cpu().numpy().tobytes() != oracle_wire(MSM_BATCH):
+        raise AssertionError("Engine.msm at 2^20 differs from the oracle")
+    if got_pad.cpu().numpy().tobytes() != oracle_wire(n_pad):
+        raise AssertionError("pad_msm changed the sum")
+    phase("msm", f"batch {MSM_BATCH}, c {MSM_C}: equals the oracle's aggregate; "
+          f"invalid lane makes ok false; pad_msm of {n_pad} lanes equals their "
+          f"MSM")
+    phase("launches", f"msm main path, 3 Engine.msm calls ({main_s:.2f}s host): "
+          f"{json.dumps(counts)}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the msm path: {missing}")
+
+    # 12. the route cross-check at 2^14, counted apart from the main path
+    pts_small = zt.EdwardsPoint(*ri._decompress(wire[:MSM_SMALL])[0])
+    fk.reset_launch_counts()
+    mk.reset_launch_counts()
+    scan = tmsm.msm(pts_small, s_small, dense=False)
+    dense = tmsm.msm(pts_small, s_small, dense=True)
+    scan_w, dense_w = ri._compress(scan._tuple()), ri._compress(dense._tuple())
+    torch.cuda.synchronize()
+    cross = msm_counts(fk, mk)
+    if not (scan_w.cpu().numpy().tobytes() == dense_w.cpu().numpy().tobytes()
+            == oracle_wire(MSM_SMALL)):
+        raise AssertionError("scan and dense routes differ at 2^14")
+    phase("msm routes", f"at {MSM_SMALL} points scan == dense == oracle; "
+          f"launches {json.dumps(cross)}")
+
+    # 13. at the shapes of the 2^20 path: K7, and K5 on the first round of
+    # the lane reduction (the halves of K7's tables, read in place), against
+    # their plain versions; K8's time
+    pts_big = ri._decompress(wire)[0]
+    s_big = zt.Scalar.from_bytes(sc)[0]
+    pst, dig, nb, lanes, nwin = msm_inputs(pts_big, s_big, MSM_C)
+    tbl = mk.bucket_accum_all(pst, dig, nb, lanes)
+    t0 = time.perf_counter()
+    ref = mk.bucket_accum_all_ref(pst, dig, nb, lanes)
+    torch.cuda.synchronize()
+    plain7 = (time.perf_counter() - t0) * 1e3
+    err7 = max_abs_err(tbl, ref)
+    del ref
+    ms7 = cuda_ms(lambda: mk.bucket_accum_all(pst, dig, nb, lanes), 3)
+    if err7 > TOLERANCE:
+        raise AssertionError("K7 differs from its plain version at 2^20")
+    b7 = roof(*k7_work(dig, nb, lanes))
+    record(mk.bucket_accum_all, err7, ms7, plain7, b7)
+    arr = tbl.view(-1, lanes, 4, 22)
+    half = lanes // 2
+    a = tuple(arr[:, :half, j] for j in range(4))
+    b = tuple(arr[:, half:, j] for j in range(4))
+    n5 = arr.shape[0] * half
+    err5 = max_abs_err(fk.padd_tiled(a, b), padd_ref_rows(fk, a, b))
+    ms5 = cuda_ms(lambda: fk.padd_tiled(a, b), 3)
+    plain5 = cuda_ms(lambda: padd_ref_rows(fk, a, b), 1)
+    if err5 > TOLERANCE:
+        raise AssertionError("K5 differs from its plain version on the first "
+                             "lane-reduce round")
+    b5 = roof(n5 * IMAD_PADD, 3 * n5 * PT_BYTES)
+    record(fk.padd_tiled, err5, ms5, plain5, b5)
+    red = tmsm._lane_reduce(tuple(arr[:, :, j] for j in range(4)))
+    tables = tuple(t.reshape(-1, nb, 22)[:nwin].contiguous() for t in red)
+    ms8 = cuda_ms(lambda: mk.combine_tables(tables, nb, nwin, MSM_C), 5)
+    phase("msm kernels at 2^20", f"K7 {ms7:.3f} ms (plain {plain7:.1f} ms, one "
+          f"call; max_abs_err {err7}; bound {b7['bound_ms']:.3f} ms by "
+          f"{b7['bound_by']}), "
+          f"{lanes} lanes x {dig.shape[0]} groups, tables "
+          f"{tbl.numel() * 4 / 2**30:.2f} GiB; K5 first lane-reduce round "
+          f"{n5} lanes {ms5:.3f} ms (plain {plain5:.1f} ms; max_abs_err {err5}; "
+          f"bound {b5['bound_ms']:.3f} ms); K8 {ms8:.3f} ms")
+    del tbl, arr, a, b, red
+
+    # 14. rates
+    rates = []
+    for c in MSM_SWEEP:
+        t = call_ms(lambda: eng.msm(wire, sc, c=c), MSM_RATE_CALLS)
+        med = t[len(t) // 2]
+        rates.append(f"c={c} {MSM_BATCH / med * 1e3:.0f} points/s (median "
+                     f"{med:.1f} ms, min {t[0]:.1f}, max {t[-1]:.1f} over "
+                     f"{len(t)} calls)")
+    phase("msm rates", f"{card}: Engine.msm at batch {MSM_BATCH}: "
+          f"{'; '.join(rates)}; peak memory allocated in this run "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    profile_msm(lambda: eng.msm(wire, sc))
+    return counts
+
+
+def profile_msm(fn) -> None:
+    """15. One Engine.msm call under torch.profiler: wall time, device time
+    of the kernel rows (the device busy share) and the kernels that take
+    most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    launches = sum(e.count for e in rows)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+    phase("msm profile", f"one Engine.msm call at {MSM_BATCH}, c {MSM_C}: wall "
+          f"{wall_ms:.1f} ms (profiled), device kernels {busy_ms:.1f} ms in "
+          f"{launches} launches, busy {busy_ms / wall_ms:.0%}")
+    for e in top:
+        phase("msm profile", f"{e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x {e.key[:90]}")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """PyTorch port: constants, oracle access, interop, and the no-jax import."""
 
 import os
+import re
 import subprocess
 import sys
 import types
@@ -34,20 +35,46 @@ def test_check_constants_detects_a_difference():
 
 
 def test_oracle_is_the_jax_package_file():
-    assert to.PATH == Path(jo.__file__).resolve()
+    """The port keeps its own copy of the oracle; the copy must compute what
+    the JAX package's file computes."""
+    assert not hasattr(to, "PATH")
     assert (to.P, to.R, to.EDWARDS_D, to.BASEPOINT) == (jo.P, jo.R, jo.EDWARDS_D,
                                                        jo.BASEPOINT)
     assert tc.CHAIN_EXPONENTS == (jc.EXP_INV, jc.EXP_LEGENDRE, jc.EXP_SQRT,
                                   jc.EXP_SQRT_RATIO)
+    rng = np.random.default_rng(7)
+    for _ in range(3):
+        k1, k2 = (int.from_bytes(rng.bytes(32), "little") % jo.R for _ in range(2))
+        p, q = to.scalar_mul(to.BASEPOINT, k1), to.scalar_mul(to.BASEPOINT, k2)
+        assert p == jo.scalar_mul(jo.BASEPOINT, k1)
+        assert to.point_add(p, q) == jo.point_add(p, q)
+        assert to.ristretto_compress(p) == jo.ristretto_compress(p)
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, zerocaf_tpu_torch, zerocaf_tpu_torch.interop; "
-            "bad = [m for m in ('jax', 'zerocaf_tpu') if m in sys.modules]; "
+    code = ("import sys, zerocaf_tpu_torch, zerocaf_tpu_torch.interop, "
+            "zerocaf_tpu_torch.oracle, zerocaf_tpu_torch.parallel.msm; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'zerocaf_tpu')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True,
                    timeout=120)
+
+
+def test_port_opens_no_file_of_the_jax_package():
+    """No source of the port, and not chip_smoke.py, builds a path into
+    zerocaf_tpu/, loads a module by file path, or imports jax or the JAX
+    package."""
+    files = sorted((REPO / "zerocaf_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    pattern = re.compile(r"""/\s*["']zerocaf_tpu["']|spec_from_file_location"""
+                         r"""|open\([^)]*zerocaf_tpu/"""
+                         r"""|^\s*(from|import)\s+(zerocaf_tpu|jax)\b""")
+    hits = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
+            for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pattern.search(line)]
+    assert not hits, hits
 
 
 def test_limb_interop_roundtrip():

@@ -192,7 +192,7 @@ def test_cuda_route_raises_without_the_library(monkeypatch, tmp_path, ladder_inp
     """A call routed to the kernel raises when the library cannot be built;
     it never falls back to the plain version."""
     monkeypatch.setattr(fk, "_on_cpu", lambda t: False)
-    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "_libs", {})
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -203,7 +203,8 @@ def test_cuda_route_raises_without_the_library(monkeypatch, tmp_path, ladder_inp
              lambda: fk.scalar_mul_windowed_stepped(
                  pt, torch.tensor(ladder_inputs["bits"]), 1),
              lambda: fk.scalar_mul_windowed_signed(
-                 pt, torch.tensor(ladder_inputs["wins"]), 4))
+                 pt, torch.tensor(ladder_inputs["wins"]), 4),
+             lambda: fk.padd_tiled(pt, pt))
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()

@@ -37,7 +37,7 @@ def flow():
 
 
 def test_dh_matches_jax_engine_and_oracle(flow):
-    wire, ok = Engine(batch=BATCH).dh(torch.tensor(flow["sk_a"]),
+    wire, ok = Engine(batch=BATCH, device="cpu").dh(torch.tensor(flow["sk_a"]),
                                       torch.tensor(flow["peer"]))
     jwire, jok = JaxEngine(batch=BATCH, donate=False).dh(
         jnp.asarray(flow["sk_a"]), jnp.asarray(flow["peer"]))
@@ -52,7 +52,8 @@ def test_dh_matches_jax_engine_and_oracle(flow):
 
 
 def test_hash_to_group_matches_jax_engine_and_oracle(flow):
-    got = Engine(batch=BATCH).hash_to_group(torch.tensor(flow["uniform"])).numpy()
+    got = Engine(batch=BATCH, device="cpu").hash_to_group(
+        torch.tensor(flow["uniform"])).numpy()
     want = np.asarray(JaxEngine(batch=BATCH, donate=False).hash_to_group(
         jnp.asarray(flow["uniform"])))
     assert np.array_equal(got, want)
@@ -70,7 +71,7 @@ def test_ecdh_flow(flow):
     pk_a = (RistrettoPoint.basepoint((BATCH,)) * sa).compress()
     pk_b = (RistrettoPoint.basepoint((BATCH,)) * sb).compress()
     assert np.array_equal(pk_b.numpy(), flow["pk_b"])
-    eng = Engine(batch=BATCH)
+    eng = Engine(batch=BATCH, device="cpu")
     s_ab, ok_ab = eng.dh(sa.to_bytes(), pk_b)
     s_ba, ok_ba = eng.dh(sb.to_bytes(), pk_a)
     assert ok_ab.all() and ok_ba.all()
@@ -99,4 +100,5 @@ def test_pad_batch_and_pinned_batch():
     with pytest.raises(ValueError):
         pad_batch(np.ones((BATCH + 1, 32), np.uint8), BATCH)
     with pytest.raises(ValueError, match="pad_batch"):
-        Engine(batch=BATCH).hash_to_group(torch.zeros((3, 64), dtype=torch.uint8))
+        Engine(batch=BATCH, device="cpu").hash_to_group(
+            torch.zeros((3, 64), dtype=torch.uint8))

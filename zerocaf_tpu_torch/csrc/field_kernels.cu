@@ -1,7 +1,8 @@
-// Hopper kernels K1-K4 of the ECDH serving path, one thread per lane, and a
-// plain C launcher per kernel (bound with ctypes by
-// zerocaf_tpu_torch/ops/kernels/build.py).  Every launcher enqueues on the
-// stream it is given and returns cudaGetLastError().
+// Hopper kernels K1-K5 (field multiply, power chains, the two ladders and
+// batched point addition), one thread per lane, and a plain C launcher per
+// kernel (bound with ctypes by zerocaf_tpu_torch/ops/kernels/build.py).
+// Every launcher enqueues on the stream it is given and returns
+// cudaGetLastError().
 //
 // Layout: public tensors are lane-major [n][22] int32 and are read as they
 // are (not coalesced; acceptable at this stage).  Per-lane tables live in a
@@ -17,6 +18,7 @@
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "init.cuh"
 
 namespace zc {
 
@@ -194,6 +196,48 @@ __global__ void __launch_bounds__(BLOCK)
   fe_store(out + 3 * plane, lane, Q.T);
 }
 
+// One operand of k_padd: its four coordinates, each a strided view
+// [outer][inner][22] (limbs contiguous) with the element strides (so, si)
+// shared by the four.  Lane l is element (l / inner, l % inner).
+struct PaddIn {
+  const int32_t* c[4];
+  int so, si;
+};
+
+__device__ __forceinline__ void padd_in_load(Pt& P, const PaddIn& in,
+                                             int lane, int inner) {
+  const int o = lane / inner;
+  const size_t off = (size_t)o * in.so + (size_t)(lane - o * inner) * in.si;
+  fe_load(P.X, in.c[0] + off, 0);
+  fe_load(P.Y, in.c[1] + off, 0);
+  fe_load(P.Z, in.c[2] + off, 0);
+  fe_load(P.T, in.c[3] + off, 0);
+}
+
+// K5 -- replaces field_kernels.py:padd_tiled (_padd_kernel).  Batched
+// unified extended addition R = P + Q: one thread per lane runs padd_ext,
+// 10 field multiplies.  The operands are read where they lie -- the MSM's
+// lane reduction passes halves of its per-lane tables, strided views that
+// would otherwise be copied first -- and R is written as coordinate planes
+// [4][n][22].  Bound by integer multiply-adds (about 9,900 per lane against
+// 1056 bytes of traffic); the TPU's padding to 1024-lane blocks has no
+// counterpart.
+__global__ void __launch_bounds__(BLOCK)
+    k_padd(const PaddIn p, const PaddIn q, int32_t* __restrict__ out, int n,
+           int inner) {
+  const int lane = lane_index();
+  if (lane >= n) return;
+  const size_t plane = L * (size_t)n;
+  Pt P, Q;
+  padd_in_load(P, p, lane, inner);
+  padd_in_load(Q, q, lane, inner);
+  padd_ext(P, P, Q);
+  fe_store(out, lane, P.X);
+  fe_store(out + plane, lane, P.Y);
+  fe_store(out + 2 * plane, lane, P.Z);
+  fe_store(out + 3 * plane, lane, P.T);
+}
+
 inline int blocks_for(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 }  // namespace zc
@@ -201,28 +245,6 @@ inline int blocks_for(int n) { return (n + BLOCK - 1) / BLOCK; }
 // ---- launchers (plain C interface) ----------------------------------------
 
 extern "C" {
-
-const char* zc_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// Writes the fold constants of p and r and the curve's d and 2d (host
-// pointers to 12, 12, 22 and 22 int32) into constant memory of the current
-// device.
-int zc_init(const int32_t* fold_p, const int32_t* fold_r, const int32_t* d,
-            const int32_t* d2) {
-  int32_t fold[2][zc::NC];
-  for (int i = 0; i < zc::NC; ++i) {
-    fold[0][i] = fold_p[i];
-    fold[1][i] = fold_r[i];
-  }
-  cudaError_t err = cudaMemcpyToSymbol(zc::c_fold, fold, sizeof(fold));
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbol(zc::c_d, d, zc::L * sizeof(int32_t));
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbol(zc::c_d2, d2, zc::L * sizeof(int32_t));
-  return static_cast<int>(err);
-}
 
 int zc_mul(const int32_t* a, const int32_t* b, int32_t* out, int n, int spec,
            void* stream) {
@@ -244,6 +266,19 @@ int zc_ladder(const int32_t* pts, const int32_t* win, int nwin, int width,
   zc::k_ladder<<<zc::blocks_for(n), zc::BLOCK, 0,
                  static_cast<cudaStream_t>(stream)>>>(pts, win, nwin, width,
                                                       is_signed, tbl, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// p0..p3 and q0..q3: the coordinates of the two operands, each with its
+// (outer, inner) element strides; n lanes, `inner` of them per outer row.
+int zc_padd(const int32_t* p0, const int32_t* p1, const int32_t* p2,
+            const int32_t* p3, int p_so, int p_si, const int32_t* q0,
+            const int32_t* q1, const int32_t* q2, const int32_t* q3, int q_so,
+            int q_si, int32_t* out, int n, int inner, void* stream) {
+  const zc::PaddIn p = {{p0, p1, p2, p3}, p_so, p_si};
+  const zc::PaddIn q = {{q0, q1, q2, q3}, q_so, q_si};
+  zc::k_padd<<<zc::blocks_for(n), zc::BLOCK, 0,
+               static_cast<cudaStream_t>(stream)>>>(p, q, out, n, inner);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,12 @@
-"""Build and bind the CUDA kernel library.
+"""Build and bind the CUDA kernel libraries.
 
-The sources in ``zerocaf_tpu_torch/csrc`` are compiled at first use with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
-``_build/libzerocaf_kernels_<hash>.so``, where ``<hash>`` is the hash of the
-sources; the library is loaded with ``ctypes``.  Nothing here runs at import.
-The ``-Xptxas -v`` report (registers, spills) is kept beside the library as
-``.log``.
+Each ``*.cu`` source in ``zerocaf_tpu_torch/csrc`` is compiled at first use
+with ``nvcc`` for ``sm_90a`` into a shared library of its own with a plain C
+interface, ``_build/lib<stem>_<hash>.so``, where ``<hash>`` is the hash of
+all the sources (headers included); all sources compile at once, one
+``nvcc`` process each.  The libraries are loaded with ``ctypes``; nothing
+here runs at import.  Each library's ``-Xptxas -v`` report (registers,
+spills) is kept beside it as ``.log``.
 """
 
 from __future__ import annotations
@@ -30,8 +31,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
-_lib: ctypes.CDLL | None = None
-_initialized_devices: set[int] = set()
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+# Every launcher's argument types, by the library (source stem) that holds it.
+SIGNATURES = {
+    "field_kernels": {
+        "zc_mul": [_ptr, _ptr, _ptr, _i32, _i32, _ptr],
+        "zc_pow": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _ptr],
+        "zc_ladder": [_ptr, _ptr, _i32, _i32, _i32, _ptr, _ptr, _i32, _ptr],
+        "zc_padd": [*[_ptr] * 4, _i32, _i32, *[_ptr] * 4, _i32, _i32, _ptr,
+                    _i32, _i32, _ptr],
+    },
+    "msm_kernels": {
+        "zc_bucket_accum": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _ptr],
+        "zc_combine": [_ptr, _ptr, _i32, _i32, _i32, _ptr],
+    },
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_initialized: set[tuple[str, int]] = set()
 
 
 def sources() -> list[Path]:
@@ -46,8 +63,11 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libzerocaf_kernels_{source_hash()}.so"
+def library_paths() -> dict[str, Path]:
+    """The library of each ``.cu`` source, by source stem."""
+    digest = source_hash()
+    return {f.stem: BUILD_DIR / f"lib{f.stem}_{digest}.so"
+            for f in sources() if f.suffix == ".cu"}
 
 
 def find_nvcc() -> str:
@@ -58,43 +78,40 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile the library unless this hash is already built.  Returns
-    (path, seconds spent compiling, ptxas report)."""
-    out = library_path()
-    log = out.with_suffix(".log")
-    if out.exists():
-        return out, 0.0, log.read_text() if log.exists() else ""
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cu = [str(f) for f in sources() if f.suffix == ".cu"]
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out, seconds, proc.stdout + proc.stderr
-
-
-def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    signatures = {
-        "zc_init": [ptr, ptr, ptr, ptr],
-        "zc_mul": [ptr, ptr, ptr, i32, i32, ptr],
-        "zc_pow": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
-        "zc_ladder": [ptr, ptr, i32, i32, i32, ptr, ptr, i32, ptr],
-    }
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.zc_error_string.argtypes = [i32]
-    lib.zc_error_string.restype = ctypes.c_char_p
+def build() -> tuple[dict[str, Path], float, str]:
+    """Compile every library that this hash has not built yet, all at once.
+    Returns (paths by stem, wall seconds spent compiling, ptxas reports)."""
+    paths = library_paths()
+    missing = {stem: p for stem, p in paths.items() if not p.exists()}
+    seconds = 0.0
+    if missing:
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        procs = {}
+        try:
+            for stem, out in missing.items():
+                tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+                procs[stem] = (tmp, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            outputs = {stem: p.communicate()[0] for stem, (_, p) in procs.items()}
+        finally:
+            for _, p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        seconds = time.perf_counter() - t0
+        failed = [s for s, (_, p) in procs.items() if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"--- {s}.cu (exit code {procs[s][1].returncode})\n{outputs[s]}"
+                for s in failed))
+        for stem, (tmp, _) in procs.items():
+            paths[stem].with_suffix(".log").write_text(outputs[stem])
+            os.replace(tmp, paths[stem])
+    logs = [p.with_suffix(".log") for p in paths.values()]
+    return paths, seconds, "".join(f.read_text() for f in logs if f.exists())
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -103,22 +120,52 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
                            f"({lib.zc_error_string(rc).decode()})")
 
 
-def load(device: torch.device) -> ctypes.CDLL:
-    """The kernel library, built if needed, with its constant memory
-    written on ``device``.  Raises if it cannot be built or loaded."""
-    global _lib
-    if _lib is None:
-        path, _, _ = build()
-        lib = ctypes.CDLL(str(path))
-        _declare(lib)
-        _lib = lib
+def _declare(lib: ctypes.CDLL, stem: str) -> None:
+    for name, argtypes in SIGNATURES[stem].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.zc_init.argtypes = [_ptr] * 4
+    lib.zc_init.restype = ctypes.c_int
+    lib.zc_error_string.argtypes = [_i32]
+    lib.zc_error_string.restype = ctypes.c_char_p
+
+
+def load(device: torch.device, stem: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<stem>.cu`` (all libraries are built if
+    needed), with its constant memory written on ``device``.  Raises if it
+    cannot be built or loaded."""
+    if stem not in _libs:
+        paths, _, _ = build()
+        lib = ctypes.CDLL(str(paths[stem]))
+        _declare(lib, stem)
+        _libs[stem] = lib
+    lib = _libs[stem]
     index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _initialized_devices:
+    if (stem, index) not in _initialized:
         consts = [np.ascontiguousarray(a, dtype=np.int32) for a in (
             C.FOLD_C_P_LIMBS, C.FOLD_C_R_LIMBS, C.EDWARDS_D_LIMBS,
             C.EDWARDS_2D_LIMBS)]
         with torch.cuda.device(index):
-            rc = _lib.zc_init(*[a.ctypes.data_as(ctypes.c_void_p) for a in consts])
-        check(_lib, rc, "zc_init")
-        _initialized_devices.add(index)
-    return _lib
+            rc = lib.zc_init(*[a.ctypes.data_as(ctypes.c_void_p) for a in consts])
+        check(lib, rc, f"zc_init ({stem})")
+        _initialized.add((stem, index))
+    return lib
+
+
+def launch(name: str, device: torch.device, stem: str, fn_name: str,
+           *args) -> None:
+    """Call the launcher ``fn_name`` of library ``stem`` on ``device``'s
+    current stream and raise if the launch was refused.  Tensors pass as
+    their data pointers, everything else as a C int."""
+    lib = load(device, stem)
+    cargs = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            cargs.append(ctypes.c_void_p(a.data_ptr()))
+        else:
+            cargs.append(ctypes.c_int(int(a)))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(*cargs, ctypes.c_void_p(stream))
+    check(lib, rc, name)

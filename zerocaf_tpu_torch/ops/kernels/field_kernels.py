@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels K1-K4 and their plain PyTorch versions
+"""Hand-written Hopper kernels K1-K5 and their plain PyTorch versions
 (zerocaf_tpu/ops/pallas/field_kernels.py counterpart).
 
   K1 ``mul_tiled``                    a*b mod p or mod r
@@ -6,6 +6,7 @@
   K3 ``scalar_mul_windowed_stepped``  unsigned windowed ladder (width 1: the
                                       oblivious bit ladder)
   K4 ``scalar_mul_windowed_signed``   signed width-4 windows, 9-entry table
+  K5 ``padd_tiled``                   batched unified extended addition
 
 The CUDA sources are ``zerocaf_tpu_torch/csrc/{field.cuh,field_kernels.cu}``.
 Each wrapper checks its tensors (int32, limb axis 22, contiguous, one device)
@@ -27,8 +28,6 @@ version agree limb for limb, not only canonically.  Laziness bounds (radix
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ... import constants as C
@@ -47,7 +46,7 @@ MAX_SIGNED_WINDOWS = 256
 # ---------------------------------------------------------------------------
 
 
-def _check_limbs(name: str, *ts: torch.Tensor) -> None:
+def _check_limbs(name: str, *ts: torch.Tensor, contiguous: bool = True) -> None:
     dev = ts[0].device
     for t in ts:
         if not isinstance(t, torch.Tensor):
@@ -59,7 +58,7 @@ def _check_limbs(name: str, *ts: torch.Tensor) -> None:
         if t.shape != ts[0].shape:
             raise ValueError(f"{name}: shapes differ: {tuple(t.shape)} vs "
                              f"{tuple(ts[0].shape)}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: tensor must be contiguous")
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
@@ -84,19 +83,7 @@ def _check_windows(name: str, windows: torch.Tensor, batch) -> None:
 
 
 def _launch(name: str, device: torch.device, fn_name: str, *args) -> None:
-    """Call one launcher of the library on ``device``'s current stream and
-    raise if the launch was refused."""
-    lib = build.load(device)
-    cargs = []
-    for a in args:
-        if isinstance(a, torch.Tensor):
-            cargs.append(ctypes.c_void_p(a.data_ptr()))
-        else:
-            cargs.append(ctypes.c_int(int(a)))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*cargs, ctypes.c_void_p(stream))
-    build.check(lib, rc, name)
+    build.launch(name, device, "field_kernels", fn_name, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -391,10 +378,79 @@ def scalar_mul_windowed_signed(pt, windows, width: int = 4):
 scalar_mul_windowed_signed.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K5: batched unified extended addition
+# ---------------------------------------------------------------------------
+
+
+def padd_tiled_ref(p, q):
+    """Plain version of K5."""
+    return _padd_ext_block(p, q)
+
+
+def _strides2(v: torch.Tensor) -> tuple[int, int]:
+    """(outer, inner) element strides of an [outer, inner, 22] view; 0 for
+    a dimension of size 1, whose stride is never used."""
+    return tuple(s if d > 1 else 0 for d, s in zip(v.shape[:2], v.stride()[:2]))
+
+
+def padd_operand(coords, inner: int):
+    """One operand of K5 as the kernel reads it: its four coordinates as
+    [outer, inner, 22] views with contiguous limbs and one pair of element
+    strides (so, si) for all four -- the lane reduction's halves of the
+    bucket tables and the scan's column views pass without a copy.
+    Coordinates that have no such view are copied to contiguous planes.
+    Returns (views, (so, si))."""
+    views = []
+    for t in coords:
+        try:
+            v = t.view(-1, inner, L)
+        except RuntimeError:
+            break
+        if v.stride(2) != 1:
+            break
+        views.append(v)
+    if len(views) < 4 or len({_strides2(v) for v in views}) != 1:
+        views = [t.contiguous().view(-1, inner, L) for t in coords]
+    strides = _strides2(views[0])
+    if max(strides) >= 1 << 31:
+        raise ValueError("padd_tiled: strides beyond int32")
+    return views, strides
+
+
+def padd_tiled(p, q):
+    """Batched unified point addition P + Q (K5).  p, q: 4-tuples of
+    [..., 22] int32 extended coordinates, all of one shape; they need not
+    be contiguous, and strided views are read in place.  Returns the
+    4-tuple of the sums, coordinate planes of one [4, ..., 22] tensor."""
+    if len(p) != 4 or len(q) != 4:
+        raise ValueError(f"padd_tiled: expected 4 coordinates, got {len(p)} "
+                         f"and {len(q)}")
+    _check_limbs("padd_tiled", *p, *q, contiguous=False)
+    if _on_cpu(p[0]):
+        return padd_tiled_ref(p, q)
+    batch = tuple(p[0].shape[:-1])
+    out = torch.empty((4,) + batch + (L,), dtype=torch.int32, device=p[0].device)
+    n = _flat(p[0])
+    if n:
+        if n >= 1 << 31:
+            raise ValueError("padd_tiled: too many lanes")
+        inner = batch[-1] if batch else 1
+        (p4, (p_so, p_si)), (q4, (q_so, q_si)) = (padd_operand(x, inner)
+                                                  for x in (p, q))
+        _launch("padd_tiled", p[0].device, "zc_padd", *p4, p_so, p_si, *q4,
+                q_so, q_si, out, n, inner)
+        padd_tiled.launches += 1
+    return tuple(out.unbind(0))
+
+
+padd_tiled.launches = 0
+
+
 def kernel_wrappers():
-    """The four wrappers, in kernel order K1..K4."""
+    """The five wrappers, in kernel order K1..K5."""
     return (mul_tiled, pow_tiled, scalar_mul_windowed_stepped,
-            scalar_mul_windowed_signed)
+            scalar_mul_windowed_signed, padd_tiled)
 
 
 def reset_launch_counts() -> None:
@@ -404,4 +460,3 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in kernel_wrappers()}
-

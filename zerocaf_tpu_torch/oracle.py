@@ -1,26 +1,373 @@
-"""The pure-Python curve oracle, shared with the JAX package.
+"""Pure-Python arbitrary-precision oracle for the Sonny curve: the port's
+judge and the source of its constants.
 
-``zerocaf_tpu/oracle.py`` imports nothing but ``__future__``, but importing it
-as ``zerocaf_tpu.oracle`` would run ``zerocaf_tpu/__init__.py`` and with it
-``import jax``.  This module loads the file by path instead, under its own
-module name, so the port derives every constant from the same judge without
-importing the JAX package.
+A direct, slow, obviously-correct implementation with Python ints of what
+the port computes: field arithmetic mod p, Edwards points in extended
+coordinates with the unified a = -1 HWCD addition, the Ristretto encode,
+decode and Elligator map, MSM, and the radix-2^12 limb codecs.  It imports
+nothing, so the port derives every constant from it without any other
+package.  ``tests/test_torch_constants.py`` holds it equal to the JAX
+package's oracle.
+
+The Tonelli-Shanks square root uses z = 6 as the non-residue.  Since
+p == 5 (mod 8) the loop collapses to a closed form:
+
+    beta = a^((p+3)/8);  raw = beta if beta^2 == a else beta * 6^((p-1)/4)
+
+``mod_sqrt_ts`` returns that raw root, sign quirks included.
 """
 
 from __future__ import annotations
 
-import importlib.util
-import sys
-from pathlib import Path
+# ---------------------------------------------------------------------------
+# Primes
+# ---------------------------------------------------------------------------
 
-PATH = Path(__file__).resolve().parent.parent / "zerocaf_tpu" / "oracle.py"
+P = 2**252 + 27742317777372353535851937790883648493
+R = 2**249 + 14490550575682688738086195780655237219  # subgroup order ("L")
 
-_NAME = __name__ + "_impl"
-_mod = sys.modules.get(_NAME)
-if _mod is None:
-    _spec = importlib.util.spec_from_file_location(_NAME, PATH)
-    _mod = importlib.util.module_from_spec(_spec)
-    sys.modules[_NAME] = _mod
-    _spec.loader.exec_module(_mod)
+DELTA_P = P - 2**252  # p = 2^252 + DELTA_P
+DELTA_R = R - 2**249  # r = 2^249 + DELTA_R
 
-globals().update({k: v for k, v in vars(_mod).items() if not k.startswith("__")})
+Q_TS = (P - 1) // 4   # p - 1 = Q_TS * 2^2 with Q_TS odd (p == 5 mod 8)
+
+# ---------------------------------------------------------------------------
+# Field arithmetic mod p
+# ---------------------------------------------------------------------------
+
+
+def fadd(a: int, b: int) -> int:
+    return (a + b) % P
+
+
+def fsub(a: int, b: int) -> int:
+    return (a - b) % P
+
+
+def fmul(a: int, b: int) -> int:
+    return (a * b) % P
+
+
+def fsquare(a: int) -> int:
+    return (a * a) % P
+
+
+def fneg(a: int) -> int:
+    return (-a) % P
+
+
+def finv(a: int) -> int:
+    """a^-1 (mod p) by Fermat."""
+    if a % P == 0:
+        raise ZeroDivisionError("cannot invert 0")
+    return pow(a, P - 2, P)
+
+
+def fdiv(a: int, b: int) -> int:
+    return fmul(a, finv(b))
+
+
+def legendre_symbol(a: int) -> int:
+    """1 if a is a non-zero square, -1 if not a square, 0 if a == 0."""
+    if a % P == 0:
+        return 0
+    return 1 if pow(a, (P - 1) // 2, P) == 1 else -1
+
+
+def is_positive(a: int) -> bool:
+    """Decaf non-negativity: least residue in [0, (p-1)/2]."""
+    return (a % P) <= (P - 1) // 2
+
+
+def fabs(a: int) -> int:
+    """The Decaf-positive representative of +-a."""
+    a %= P
+    return a if is_positive(a) else P - a
+
+
+C6 = pow(6, Q_TS, P)                          # a square root of -1
+SQRT_M1 = C6 if is_positive(C6) else P - C6   # the positive one
+
+
+def mod_sqrt_ts(a: int) -> int | None:
+    """The raw Tonelli-Shanks root (closed p == 5 (mod 8) form), or None
+    for a non-residue."""
+    a %= P
+    if a == 0:
+        return 0
+    beta = pow(a, (P + 3) // 8, P)
+    if (beta * beta) % P == a:
+        return beta
+    raw = (beta * C6) % P
+    if (raw * raw) % P == a:
+        return raw
+    return None
+
+
+def mod_sqrt(a: int, sign: int) -> int | None:
+    """sign 0: the raw root; sign 1: p - raw."""
+    raw = mod_sqrt_ts(a)
+    if raw is None:
+        return None
+    return (P - raw) % P if sign else raw
+
+
+def sqrt_positive(a: int) -> int | None:
+    """The Decaf-positive square root, if it exists."""
+    raw = mod_sqrt_ts(a)
+    return None if raw is None else fabs(raw)
+
+
+def sqrt_ratio_i(u: int, v: int) -> tuple[bool, int]:
+    """Merged sqrt(u/v) with the four-case contract:
+
+      (True,  +sqrt(u/v))    if v != 0 and u/v square
+      (True,  0)             if u == 0
+      (False, 0)             if v == 0, u != 0
+      (False, +sqrt(i*u/v))  if u/v nonsquare
+    """
+    u %= P
+    v %= P
+    if u == 0:
+        return True, 0
+    if v == 0:
+        return False, 0
+    ratio = fdiv(u, v)
+    if legendre_symbol(ratio) == 1:
+        return True, sqrt_positive(ratio)
+    return False, sqrt_positive(fmul(SQRT_M1, ratio))
+
+
+def inv_sqrt(a: int) -> tuple[bool, int]:
+    return sqrt_ratio_i(1, a)
+
+
+# ---------------------------------------------------------------------------
+# Derived constants
+# ---------------------------------------------------------------------------
+
+POS_RANGE = (P - 1) // 2                      # Decaf range bound
+
+EDWARDS_A = P - 1
+EDWARDS_D = fmul(fneg(126296), finv(126297))
+
+INV_SQRT_A_MINUS_D = sqrt_positive(finv(fsub(EDWARDS_A, EDWARDS_D)))
+SQRT_AD_MINUS_ONE = sqrt_positive(fsub(fmul(EDWARDS_A, EDWARDS_D), 1))
+ONE_MINUS_D_SQ = fsub(1, fsquare(EDWARDS_D))
+D_MINUS_ONE_SQ = fsquare(fsub(EDWARDS_D, 1))
+
+# ---------------------------------------------------------------------------
+# Byte codecs: canonical 32-byte little-endian
+# ---------------------------------------------------------------------------
+
+
+def fe_to_bytes(a: int) -> bytes:
+    return int(a % P).to_bytes(32, "little")
+
+
+def fe_from_bytes(b: bytes) -> int:
+    """The 256-bit little-endian value, reduced mod p."""
+    if len(b) != 32:
+        raise ValueError(f"expected 32 bytes, got {len(b)}")
+    return int.from_bytes(b, "little") % P
+
+
+# ---------------------------------------------------------------------------
+# Edwards points: extended (X, Y, Z, T), x = X/Z, y = Y/Z, xy = T/Z
+# ---------------------------------------------------------------------------
+
+ExtPoint = tuple[int, int, int, int]
+
+IDENTITY: ExtPoint = (0, 1, 1, 0)
+
+
+def point_add(p: ExtPoint, q: ExtPoint) -> ExtPoint:
+    """Unified HWCD a = -1 addition; complete on this curve."""
+    X1, Y1, Z1, T1 = p
+    X2, Y2, Z2, T2 = q
+    A = fmul(X1, X2)
+    B = fmul(Y1, Y2)
+    C = fmul(EDWARDS_D, fmul(T1, T2))
+    D = fmul(Z1, Z2)
+    E = fsub(fsub(fmul(fadd(X1, Y1), fadd(X2, Y2)), A), B)
+    F = fsub(D, C)
+    G = fadd(D, C)
+    H = fadd(B, A)
+    return (fmul(E, F), fmul(G, H), fmul(F, G), fmul(E, H))
+
+
+def point_neg(p: ExtPoint) -> ExtPoint:
+    X, Y, Z, T = p
+    return (fneg(X), Y, Z, fneg(T))
+
+
+def point_double(p: ExtPoint) -> ExtPoint:
+    """dbl-2008-hwcd doubling (4M+4S)."""
+    X, Y, Z, _ = p
+    A = fsquare(X)
+    B = fsquare(Y)
+    C = fmul(2, fsquare(Z))
+    D = fneg(A)  # a = -1
+    E = fsub(fsub(fsquare(fadd(X, Y)), A), B)
+    G = fadd(D, B)
+    F = fsub(G, C)
+    H = fsub(D, B)
+    return (fmul(E, F), fmul(G, H), fmul(F, G), fmul(E, H))
+
+
+def point_eq(p: ExtPoint, q: ExtPoint) -> bool:
+    """Projective equality X1/Z1 == X2/Z2 and Y1/Z1 == Y2/Z2."""
+    X1, Y1, Z1, _ = p
+    X2, Y2, Z2, _ = q
+    return fmul(X1, Z2) == fmul(X2, Z1) and fmul(Y1, Z2) == fmul(Y2, Z1)
+
+
+def scalar_mul(p: ExtPoint, k: int) -> ExtPoint:
+    """LSB-first double-and-add by the raw integer k >= 0 (not reduced
+    mod r)."""
+    if k < 0:
+        raise ValueError("scalar_mul needs k >= 0")
+    q = IDENTITY
+    n = p
+    while k:
+        if k & 1:
+            q = point_add(q, n)
+        n = point_double(n)
+        k >>= 1
+    return q
+
+
+def find_xx(y: int) -> int:
+    """xx = (y^2 - 1) / (d*y^2 - a)."""
+    ys = fsquare(y)
+    return fdiv(fsub(ys, 1), fsub(fmul(EDWARDS_D, ys), EDWARDS_A))
+
+
+def point_from_y(y: int, sign: int) -> ExtPoint | None:
+    x = mod_sqrt(find_xx(y), sign)
+    if x is None:
+        return None
+    return (x, y, 1, fmul(x, y))
+
+
+# Basepoint: y = 3/5 (mod p), x the raw root (sign 0).
+BASEPOINT: ExtPoint = point_from_y(fdiv(3, 5), 0)
+
+# ---------------------------------------------------------------------------
+# Ristretto
+# ---------------------------------------------------------------------------
+
+
+def ristretto_compress(p: ExtPoint) -> bytes:
+    """Ristretto encode."""
+    X, Y, Z, T = p
+    u1 = fmul(fadd(Z, Y), fsub(Z, Y))
+    u2 = fmul(X, Y)
+    _, I = inv_sqrt(fmul(u1, fsquare(u2)))
+    D1 = fmul(u1, I)
+    D2 = fmul(u2, I)
+    Zinv = fmul(fmul(D1, D2), T)
+    if not is_positive(fmul(T, Zinv)):
+        x, y = fmul(SQRT_M1, Y), fmul(SQRT_M1, X)
+        D = fmul(D1, INV_SQRT_A_MINUS_D)
+    else:
+        x, y = X, Y
+        D = D2
+    if not is_positive(fmul(x, Zinv)):
+        y = fneg(y)
+    s = fmul(fsub(Z, y), D)
+    if not is_positive(s):
+        s = fneg(s)
+    return fe_to_bytes(s)
+
+
+def ristretto_decompress(b: bytes) -> ExtPoint | None:
+    """Ristretto decode; None for an invalid encoding."""
+    s = int.from_bytes(b, "little") % P
+    if fe_to_bytes(s) != bytes(b) or not is_positive(s):
+        return None
+    ss = fsquare(s)
+    u1 = fsub(1, ss)
+    u2 = fadd(1, ss)
+    u2_sq = fsquare(u2)
+    v = fsub(fneg(fmul(EDWARDS_D, fsquare(u1))), u2_sq)
+    ok, I = inv_sqrt(fmul(v, u2_sq))
+    if not ok:
+        return None
+    Dx = fmul(I, u2)
+    Dy = fmul(I, fmul(Dx, v))
+    x = fmul(fadd(s, s), Dx)
+    if not is_positive(x):
+        x = fneg(x)
+    y = fmul(u1, Dy)
+    t = fmul(x, y)
+    if not is_positive(t) or y == 0:
+        return None
+    return (x, y, 1, t)
+
+
+def elligator_ristretto_flavor(r0: int) -> ExtPoint:
+    """The Ristretto Elligator map."""
+    d = EDWARDS_D
+    c = P - 1
+    r = fmul(SQRT_M1, fsquare(r0))
+    N_s = fmul(fadd(r, 1), ONE_MINUS_D_SQ)
+    D = fmul(fsub(c, fmul(d, r)), fadd(r, d))
+    Ns_D_is_sq, s = sqrt_ratio_i(N_s, D)
+    s_prim = fmul(s, r0)
+    if is_positive(s_prim):
+        s_prim = fneg(s_prim)
+    if not Ns_D_is_sq:
+        s = s_prim
+        c = r
+    N_t = fsub(fmul(fmul(c, fsub(r, 1)), D_MINUS_ONE_SQ), D)
+    s_sq = fsquare(s)
+    W0 = fmul(fadd(s, s), D)
+    W1 = fmul(N_t, SQRT_AD_MINUS_ONE)
+    W2 = fsub(1, s_sq)
+    W3 = fadd(1, s_sq)
+    return (fmul(W0, W3), fmul(W2, W1), fmul(W1, W3), fmul(W0, W2))
+
+
+def from_uniform_bytes(b: bytes) -> ExtPoint:
+    """Hash-to-group: Elligator on each 32-byte half, then add."""
+    if len(b) != 64:
+        raise ValueError(f"expected 64 bytes, got {len(b)}")
+    return point_add(elligator_ristretto_flavor(fe_from_bytes(b[:32])),
+                     elligator_ristretto_flavor(fe_from_bytes(b[32:])))
+
+
+# ---------------------------------------------------------------------------
+# MSM
+# ---------------------------------------------------------------------------
+
+
+def msm(points: list[ExtPoint], scalars: list[int]) -> ExtPoint:
+    """sum(k_i * P_i)."""
+    acc = IDENTITY
+    for p, k in zip(points, scalars):
+        acc = point_add(acc, scalar_mul(p, k))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Limb codecs: radix 2^12 x 22 limbs, and the reference's 5 x 52 bits
+# ---------------------------------------------------------------------------
+
+RADIX_BITS = 12
+NUM_LIMBS = 22
+
+
+def int_to_limbs(a: int, n: int = NUM_LIMBS, w: int = RADIX_BITS) -> list[int]:
+    if a < 0 or a >> (w * n):
+        raise ValueError(f"value does not fit in {n} limbs of {w} bits")
+    mask = (1 << w) - 1
+    return [(a >> (w * i)) & mask for i in range(n)]
+
+
+def limbs_to_int(limbs, w: int = RADIX_BITS) -> int:
+    return sum(int(v) << (w * i) for i, v in enumerate(limbs))
+
+
+def limbs52_to_int(limbs) -> int:
+    return limbs_to_int(limbs, w=52)

@@ -2,9 +2,10 @@
 (zerocaf_tpu/serving.py counterpart).
 
 An ``Engine`` serves fixed-size batches of 32-byte wire arrays on one
-device.  Ragged traffic is padded to the engine batch with ``pad_batch``.
-This slice serves ``dh`` and ``hash_to_group``; ``keygen`` (fixed-base comb),
-``msm`` and the pipelined wrapper are later slices (ROADMAP.md).
+device, the first CUDA card unless told otherwise.  Ragged traffic is padded
+to the engine batch with ``pad_batch`` (``pad_msm`` for MSM requests).  The
+port serves ``dh``, ``hash_to_group`` and ``msm``; ``keygen`` (fixed-base
+comb) and the pipelined wrapper are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from .models import ristretto as _ri
 from .models.edwards import EdwardsPoint
+from .parallel.msm import msm as _msm
 from .scalar import Scalar
 
 
@@ -28,6 +30,15 @@ def pad_batch(arr: np.ndarray, batch: int):
     return np.concatenate([arr, pad], axis=0), n
 
 
+def pad_msm(points_wire: np.ndarray, scalar32: np.ndarray, batch: int):
+    """Pad an MSM request to the engine batch with identity wire (32 zero
+    bytes, the canonical Ristretto identity) and zero scalars, which add
+    nothing to the aggregate.  Returns (points, scalars, n_valid)."""
+    p, n = pad_batch(points_wire, batch)
+    s, _ = pad_batch(scalar32, batch)
+    return p, s, n
+
+
 class Engine:
     """Pinned-batch serving engine on one device.
 
@@ -35,17 +46,25 @@ class Engine:
             the JAX package's default; on the H100 it is the ECDH serving
             size that chip_smoke.py drives.
     device: where the wire arrays are computed; inputs are moved there.
+            None means the first CUDA card, and raises where there is
+            none; pass "cpu" to run the kernels' plain versions.
     """
 
     def __init__(self, batch: int = 32768, device=None):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("Engine() serves on the first CUDA card and "
+                                   "none is available; pass device='cpu' to "
+                                   "run on the CPU")
+            device = "cuda:0"
         self.batch = batch
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = torch.device(device)
 
     def _wire(self, arr, width: int) -> torch.Tensor:
         t = torch.as_tensor(arr, dtype=torch.uint8).to(self.device)
         if tuple(t.shape) != (self.batch, width):
             raise ValueError(f"expected [{self.batch}, {width}] uint8, got "
-                             f"{tuple(t.shape)}; pad with pad_batch")
+                             f"{tuple(t.shape)}; pad with pad_batch or pad_msm")
         return t.contiguous()
 
     def dh(self, sk32, peer32):
@@ -67,3 +86,20 @@ class Engine:
         """[batch, 64] uniform bytes -> [batch, 32] Ristretto wire."""
         p = _ri.RistrettoPoint.from_uniform_bytes(self._wire(uniform64, 64))
         return p.compress()
+
+    def msm(self, points_wire, scalar32, c: int | None = None,
+            dense: bool | None = None):
+        """[batch, 32] Ristretto wire + [batch, 32] scalar bytes ->
+        ([32] wire of sum(s_i * P_i), ok).
+
+        ok is False if any lane's point encoding is invalid: the aggregate
+        is then garbage and the caller must reject the whole batch, as a
+        verifier does.  Scalars are reduced mod r.  The batch axis must
+        equal the engine batch (``pad_msm`` pads with identity points and
+        zero scalars).  c and dense choose the window width and the route
+        of ``parallel.msm.msm``: by default the dense kernels (K7, K5, K8)
+        at c = 6."""
+        pts, ok = _ri._decompress(self._wire(points_wire, 32))
+        s, _ = Scalar.from_bytes(self._wire(scalar32, 32))
+        total = _msm(EdwardsPoint(*pts), s, c=c, dense=dense)
+        return _ri._compress(total._tuple()), ok.all()
