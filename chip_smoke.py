@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ECDH serving path and its MSM path once on one
-CUDA card.
+"""Drive the PyTorch port's ECDH serving path, its MSM path and its keygen
+path once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -35,7 +35,21 @@ Phases, in order (any failure raises, so the exit code is non-zero):
  14. rates: Engine.msm points/s at 2^20 for c = 5, 6 and 7 (median of 5
      calls on the host clock, with the min and max);
  15. one Engine.msm call at 2^20 under torch.profiler: device busy share
-     and the kernels that take the most device time.
+     and the kernels that take the most device time;
+ 16. comb table: the signed width-14 table loaded from the cache or built
+     from the oracle (seconds printed), uploaded in both layouts;
+ 17. K6 against its plain version at 32768 lanes: signed width 14 on the
+     packed and the rows table, unsigned width 8;
+ 18. Engine.keygen at batch 32768, the keygen main path: pk equals the
+     Ristretto encoding of the ladder's (K3) sk * B on every lane, and the
+     oracle on 32 sampled lanes and on the lanes that reduce to
+     k = 2^250 - r, 0, 1 and r - 1; sk equals the oracle's reduction.  K6,
+     K1 and K2 must each have launched in that call (counts reset just
+     before it and read just after);
+ 19. K10 at 32768 lanes, width 4: its one launch counted, equal to its
+     plain version and, canonically, to K4 on the same windows;
+ 20. rate: keygen ops/s (median of 11 calls, with the min and max), and
+     one Engine.keygen call under torch.profiler.
 The line before the last is a JSON object with one entry per kernel, with
 its bound (the larger of its bytes over the memory rate and its integer
 multiply-adds over the card's multiply-add rate); the last line is
@@ -65,6 +79,7 @@ SEED = 20261016
 ECDH_KERNELS = ("mul_tiled", "pow_tiled", "scalar_mul_windowed_stepped",
                 "scalar_mul_windowed_signed")
 MSM_KERNELS = ("padd_tiled", "bucket_accum_all", "combine_tables")
+KEYGEN_KERNELS = ("mul_tiled", "pow_tiled", "fixed_base_mul_stepped")
 SOURCE = "zerocaf_tpu_torch/csrc/field_kernels.cu"
 MSM_SOURCE = "zerocaf_tpu_torch/csrc/msm_kernels.cu"
 TPU_KERNELS = "zerocaf_tpu/ops/pallas/field_kernels.py"
@@ -78,6 +93,7 @@ IMAD_MUL = 22 * 22 + 12 * (23 + 14 + 5)
 IMAD_SQ = 22 + 231 + 12 * (23 + 14 + 5)
 IMAD_PADD = 10 * IMAD_MUL                       # padd_ext
 IMAD_MADD = 8 * IMAD_MUL                        # madd
+IMAD_MADD7 = 7 * IMAD_MUL                       # madd_affine (the comb)
 IMAD_PDBL_T = 4 * IMAD_SQ + 4 * IMAD_MUL        # pdbl with T
 IMAD_PDBL = 4 * IMAD_SQ + 3 * IMAD_MUL          # pdbl without T
 PT_BYTES = 4 * 22 * 4                           # one extended point
@@ -394,12 +410,15 @@ def main() -> None:
           f"mults/s, signed windowed {BATCH / k4_ms * 1e3:.0f} mults/s, batch {BATCH}")
 
     counts.update(msm_phases(dev, rng, roof, card, pts, record))
+    counts.update(keygen_phases(dev, rng, roof, card, pts, s, record))
 
     replaces = {"mul_tiled": (SOURCE, TPU_KERNELS, 1133),
                 "pow_tiled": (SOURCE, TPU_KERNELS, 1030),
                 "scalar_mul_windowed_stepped": (SOURCE, TPU_KERNELS, 704),
                 "scalar_mul_windowed_signed": (SOURCE, TPU_KERNELS, 825),
                 "padd_tiled": (SOURCE, TPU_KERNELS, 313),
+                "fixed_base_mul_stepped": (SOURCE, TPU_KERNELS, 437),
+                "scalar_mul_windowed_fused": (SOURCE, TPU_KERNELS, 909),
                 "bucket_accum_all": (MSM_SOURCE, TPU_MSM_KERNELS, 392),
                 "combine_tables": (MSM_SOURCE, TPU_MSM_KERNELS, 247)}
     kernels = [{"name": name, "route": "cuda", "source": src,
@@ -638,14 +657,140 @@ def msm_phases(dev, rng, roof, card, ecdh_pts, record) -> dict[str, int]:
     phase("msm rates", f"{card}: Engine.msm at batch {MSM_BATCH}: "
           f"{'; '.join(rates)}; peak memory allocated in this run "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    profile_msm(lambda: eng.msm(wire, sc))
+    profile_call("msm profile", f"one Engine.msm call at {MSM_BATCH}, c {MSM_C}",
+                 lambda: eng.msm(wire, sc))
     return counts
 
 
-def profile_msm(fn) -> None:
-    """15. One Engine.msm call under torch.profiler: wall time, device time
-    of the kernel rows (the device busy share) and the kernels that take
-    most of it."""
+def keygen_phases(dev, rng, roof, card, pts, s, record) -> dict[str, int]:
+    """Phases 16-20: the comb table, K6 against its plain version,
+    Engine.keygen at batch 32768 against the ladder and the oracle, K10,
+    and the keygen rate.  pts and s are phase 3's random points and
+    scalars.  Returns the launches of K6 in the keygen call (the keygen
+    main path) and of K10 in its own call."""
+    import zerocaf_tpu_torch as zt
+    from zerocaf_tpu_torch import oracle as o
+    from zerocaf_tpu_torch.models import edwards as ed
+    from zerocaf_tpu_torch.models import ristretto as ri
+    from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
+
+    # 16. the comb table
+    sw = ed.COMB_WIDTH_SIGNED
+    cached = ed.comb_cache_path(sw, True).exists()
+    t0 = time.perf_counter()
+    host = ed._fixed_base_table_signed(sw)
+    built_s = time.perf_counter() - t0
+    dev_tbl = {layout: ed.comb_table(sw, True, layout, dev)
+               for layout in ("packed", "rows")}
+    torch.cuda.synchronize()
+    phase("comb table", f"signed width {sw}: {list(host.shape)} int32 "
+          f"({host.nbytes / 1e6:.1f} MB) from the {'cache' if cached else 'oracle'} "
+          f"in {built_s:.2f}s; on the card packed {dev_tbl['packed'].nbytes / 1e6:.1f}"
+          f" MB, rows {dev_tbl['rows'].nbytes / 1e6:.1f} MB")
+
+    # 17. K6 against its plain version at BATCH lanes
+    cases = ((sw, True, "packed2"), (sw, True, "rows"), (8, False, "rows"))
+    for width, signed, glue in cases:
+        win = s.windows(width, -(-250 // width))
+        got = fk.fixed_base_mul_stepped(win, width, signed=signed, glue=glue)
+        want = fk.fixed_base_mul_stepped_ref(win, width, signed=signed, glue=glue)
+        err = max_abs_err(got, want)
+        ms = cuda_ms(lambda: fk.fixed_base_mul_stepped(win, width, signed=signed,
+                                                       glue=glue), 20)
+        plain = cuda_ms(lambda: fk.fixed_base_mul_stepped_ref(
+            win, width, signed=signed, glue=glue), 1)
+        tbl = ed.comb_table(width, signed, fk.comb_layout(glue), dev)
+        bound = roof(BATCH * win.shape[-1] * IMAD_MADD7,
+                     tbl.nbytes + win.nbytes + BATCH * PT_BYTES)
+        label = f"{'signed' if signed else 'unsigned'} width {width} {glue}"
+        phase("K6 fixed_base_mul_stepped", f"{label}, {BATCH} lanes: max_abs_err "
+              f"{err} (tolerance {TOLERANCE}), kernel {ms:.4f} ms, plain "
+              f"{plain:.2f} ms, bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}")
+        if err > TOLERANCE:
+            raise AssertionError(f"K6 differs from its plain version ({label})")
+        if glue == "packed2":                  # basepoint_mul's route
+            k6_ms = ms
+            record(fk.fixed_base_mul_stepped, err, ms, plain, bound)
+        else:
+            record(fk.fixed_base_mul_stepped, err)
+
+    # 18. Engine.keygen at BATCH: the keygen main path
+    seeds = rng.integers(0, 256, (BATCH, 64), dtype=np.uint8)
+    special = [2**250 - o.R, 0, 1, o.R - 1]
+    for i, k in enumerate(special):         # bytes of k, then 32 zero bytes
+        seeds[i] = np.frombuffer(k.to_bytes(32, "little") + bytes(32), np.uint8)
+    seeds_t = torch.as_tensor(seeds)
+    eng = zt.Engine(batch=BATCH, device=dev)
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    sk, pk = eng.keygen(seeds_t)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = {k: v for k, v in fk.launch_counts().items() if k in KEYGEN_KERNELS}
+
+    ladder = (zt.RistrettoPoint.basepoint((BATCH,), dev)
+              * zt.Scalar.from_bytes(sk)[0]).compress()
+    if not torch.equal(pk, ladder):
+        bad = int((pk != ladder).any(-1).sum().item())
+        raise AssertionError(f"keygen pk differs from the ladder's on {bad} lanes")
+    sk_np, pk_np = sk.cpu().numpy(), pk.cpu().numpy()
+    lanes = list(range(len(special))) + list(rng.choice(
+        np.arange(len(special), BATCH), SAMPLE, replace=False))
+    for i in lanes:
+        k = int.from_bytes(seeds[i].tobytes(), "little") % o.R
+        if sk_np[i].tobytes() != k.to_bytes(32, "little"):
+            raise AssertionError(f"keygen lane {i}: secret key bytes")
+        if pk_np[i].tobytes() != o.ristretto_compress(o.scalar_mul(o.BASEPOINT, k)):
+            raise AssertionError(f"keygen lane {i}: public key")
+    phase("keygen", f"batch {BATCH}, comb width {sw}: pk equals the ladder's on "
+          f"every lane; {SAMPLE} sampled lanes and k = 2^250 - r, 0, 1, r - 1 "
+          f"equal the oracle")
+    phase("launches", f"keygen main path, one Engine.keygen call ({main_s:.2f}s "
+          f"host, first call): {json.dumps(counts)}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the keygen path: {missing}")
+
+    # 19. K10 at BATCH lanes, width 4: its own entry's launch
+    win4 = s.windows(4, 63)
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    got = fk.scalar_mul_windowed_fused(pts, win4, 4)
+    torch.cuda.synchronize()
+    k10 = fk.scalar_mul_windowed_fused.launches
+    err = max_abs_err(got, fk.scalar_mul_windowed_stepped_ref(pts, win4, 4))
+    same_k4 = torch.equal(ri._compress(got),
+                          ri._compress(fk.scalar_mul_windowed_signed(pts, win4, 4)))
+    ms = cuda_ms(lambda: fk.scalar_mul_windowed_fused(pts, win4, 4), 3)
+    plain = cuda_ms(lambda: fk.scalar_mul_windowed_stepped_ref(pts, win4, 4), 1)
+    k10_lane = (14 * IMAD_PADD + 15 * IMAD_MUL
+                + 63 * (3 * IMAD_PDBL + IMAD_PDBL_T + IMAD_MADD))
+    bound = roof(BATCH * k10_lane, BATCH * (2 * PT_BYTES + 4 * 63))
+    phase("K10 scalar_mul_windowed_fused", f"width 4, {BATCH} lanes: {k10} launch, "
+          f"max_abs_err {err} (tolerance {TOLERANCE}), equal to K4 after encoding: "
+          f"{same_k4}, kernel {ms:.3f} ms, plain {plain:.1f} ms, bound "
+          f"{bound['bound_ms']:.3f} ms by {bound['bound_by']}")
+    if err > TOLERANCE or not same_k4 or k10 != 1:
+        raise AssertionError("K10 differs from its plain version or from K4")
+    record(fk.scalar_mul_windowed_fused, err, ms, plain, bound)
+
+    # 20. keygen rate
+    t = call_ms(lambda: eng.keygen(seeds_t), RATE_CALLS)
+    med = t[len(t) // 2]
+    phase("rates", f"{card}: keygen {BATCH / med * 1e3:.0f} ops/s (median "
+          f"{med:.2f} ms, min {t[0]:.2f}, max {t[-1]:.2f} over {len(t)} calls), "
+          f"batch {BATCH}; K6 alone {BATCH / k6_ms * 1e3:.0f} mults/s")
+    profile_call("keygen profile", f"one Engine.keygen call at {BATCH}",
+                 lambda: eng.keygen(seeds_t))
+    return {"fixed_base_mul_stepped": counts["fixed_base_mul_stepped"],
+            "scalar_mul_windowed_fused": k10}
+
+
+def profile_call(label: str, what: str, fn) -> None:
+    """One serving call under torch.profiler (phases 15 and 20): wall time,
+    device time of the kernel rows (the device busy share) and the kernels
+    that take most of it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -660,11 +805,10 @@ def profile_msm(fn) -> None:
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     launches = sum(e.count for e in rows)
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
-    phase("msm profile", f"one Engine.msm call at {MSM_BATCH}, c {MSM_C}: wall "
-          f"{wall_ms:.1f} ms (profiled), device kernels {busy_ms:.1f} ms in "
-          f"{launches} launches, busy {busy_ms / wall_ms:.0%}")
+    phase(label, f"{what}: wall {wall_ms:.1f} ms (profiled), device kernels "
+          f"{busy_ms:.1f} ms in {launches} launches, busy {busy_ms / wall_ms:.0%}")
     for e in top:
-        phase("msm profile", f"{e.self_device_time_total / 1e3:9.3f} ms "
+        phase(label, f"{e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x {e.key[:90]}")
 
 

@@ -49,11 +49,14 @@ def test_oracle_is_the_jax_package_file():
         assert p == jo.scalar_mul(jo.BASEPOINT, k1)
         assert to.point_add(p, q) == jo.point_add(p, q)
         assert to.ristretto_compress(p) == jo.ristretto_compress(p)
+        assert to.point_to_affine(p) == jo.point_to_affine(p)
+        assert to.mul_by_pow_2(p, 14) == jo.mul_by_pow_2(p, 14)
 
 
 def test_import_leaves_jax_out():
     code = ("import sys, zerocaf_tpu_torch, zerocaf_tpu_torch.interop, "
-            "zerocaf_tpu_torch.oracle, zerocaf_tpu_torch.parallel.msm; "
+            "zerocaf_tpu_torch.oracle, zerocaf_tpu_torch.parallel.msm, "
+            "zerocaf_tpu_torch.serving, zerocaf_tpu_torch.models.edwards; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'zerocaf_tpu')]; "
             "assert not bad, bad")

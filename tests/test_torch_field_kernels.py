@@ -155,6 +155,18 @@ def test_windowed_refs_match_jax_windowed(ladder_inputs, jax_windowed, signed):
     assert got == d["want"]
 
 
+def test_fused_on_cpu_matches_jax_windowed(ladder_inputs, jax_windowed):
+    """K10 (the unsigned windowed ladder as one program) on the CPU: its
+    plain version, equal to the JAX package's windowed path at width 4."""
+    d = ladder_inputs
+    before = fk.scalar_mul_windowed_fused.launches
+    got = fk.scalar_mul_windowed_fused(_tpt(d["coords"]), torch.tensor(d["wins"]), 4)
+    assert fk.scalar_mul_windowed_fused.launches == before
+    assert _wire(got) == jax_windowed == d["want"]
+    with pytest.raises(ValueError, match="width"):
+        fk.scalar_mul_windowed_fused(_tpt(d["coords"]), torch.tensor(d["wins"]), 5)
+
+
 def test_signed_recode_matches_jax():
     w = np.random.default_rng(33).integers(0, 16, (N, 63)).astype(np.int32)
     got = fk._signed_recode(torch.tensor(w), 4).numpy()
@@ -204,7 +216,11 @@ def test_cuda_route_raises_without_the_library(monkeypatch, tmp_path, ladder_inp
                  pt, torch.tensor(ladder_inputs["bits"]), 1),
              lambda: fk.scalar_mul_windowed_signed(
                  pt, torch.tensor(ladder_inputs["wins"]), 4),
-             lambda: fk.padd_tiled(pt, pt))
+             lambda: fk.padd_tiled(pt, pt),
+             lambda: fk.fixed_base_mul_stepped(
+                 torch.zeros((4, 32), dtype=torch.int32), 8, signed=True),
+             lambda: fk.scalar_mul_windowed_fused(
+                 pt, torch.tensor(ladder_inputs["wins"]), 4))
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
@@ -247,5 +263,18 @@ def test_ladder_kernels_equal_plain(cuda, ladder_inputs, signed, width):
                  if signed else (fk.scalar_mul_windowed_stepped,
                                  fk.scalar_mul_windowed_stepped_ref))
     got, want = kern(pt, win, width), ref(pt, win, width)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert [r.tobytes() for r in tri._compress(got).cpu().numpy()] == d["want"]
+
+
+@pytest.mark.cuda
+def test_fused_kernel_equals_plain(cuda, ladder_inputs):
+    d = ladder_inputs
+    pt = tuple(torch.tensor(c, device=cuda) for c in d["coords"])
+    win = torch.tensor(d["wins"], device=cuda)
+    before = fk.scalar_mul_windowed_fused.launches
+    got = fk.scalar_mul_windowed_fused(pt, win, 4)
+    assert fk.scalar_mul_windowed_fused.launches == before + 1
+    want = fk.scalar_mul_windowed_stepped_ref(pt, win, 4)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert [r.tobytes() for r in tri._compress(got).cpu().numpy()] == d["want"]

@@ -1,14 +1,18 @@
-"""PyTorch port: the serving Engine (dh, hash_to_group) byte-equal to the JAX
-package's Engine and to the oracle, and the whole ECDH flow."""
+"""PyTorch port: the serving Engine (keygen, dh, hash_to_group) byte-equal
+to the JAX package and to the oracle, and the whole ECDH flow."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from zerocaf_tpu import Scalar as JScalar
 from zerocaf_tpu import oracle as o
+from zerocaf_tpu.models import edwards as jed
+from zerocaf_tpu.models import ristretto as jri
 from zerocaf_tpu.serving import Engine as JaxEngine
 from zerocaf_tpu_torch import Engine, RistrettoPoint, Scalar
+from zerocaf_tpu_torch.models import edwards as ted
 from zerocaf_tpu_torch.serving import pad_batch
 
 BATCH = 8
@@ -34,6 +38,29 @@ def flow():
     uniform = rng.integers(0, 256, (BATCH, 64), dtype=np.uint8)
     return dict(seeds_a=seeds_a, seeds_b=seeds_b, ka=ka, kb=kb, sk_a=_sk(seeds_a),
                 sk_b=_sk(seeds_b), pk_b=pk_b, peer=peer, uniform=uniform)
+
+
+def test_keygen_matches_jax_composition_and_oracle(monkeypatch):
+    """Engine.keygen at comb width 8 (the bytes do not depend on the width)
+    against the JAX package's keygen composition at width 8 and the
+    oracle.  Lanes 0-3 reduce to k = 2^250 - r (a doubling in the signed
+    comb's last addition), 0, 1 and r - 1: the bytes of k, then 32 zero
+    bytes."""
+    monkeypatch.setattr(ted, "COMB_WIDTH_SIGNED", 8)
+    n = 16
+    seeds = np.random.default_rng(52).integers(0, 256, (n, 64), dtype=np.uint8)
+    for i, k in enumerate([2**250 - o.R, 0, 1, o.R - 1]):
+        seeds[i] = np.frombuffer(k.to_bytes(32, "little") + bytes(32), np.uint8)
+    sk, pk = Engine(batch=n, device="cpu").keygen(torch.tensor(seeds))
+    js = JScalar.from_bytes_wide(jnp.asarray(seeds))
+    jpk = jri._compress(jed._fixed_base_mul_signed(js.windows(8, 32), 8))
+    assert np.array_equal(sk.numpy(), np.asarray(js.to_bytes()))
+    assert np.array_equal(pk.numpy(), np.asarray(jpk))
+    for i in range(n):
+        k = int.from_bytes(seeds[i].tobytes(), "little") % o.R
+        assert sk[i].numpy().tobytes() == k.to_bytes(32, "little")
+        assert pk[i].numpy().tobytes() == o.ristretto_compress(
+            o.scalar_mul(o.BASEPOINT, k))
 
 
 def test_dh_matches_jax_engine_and_oracle(flow):

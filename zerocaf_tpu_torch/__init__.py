@@ -3,11 +3,13 @@ H100.
 
 Batched arithmetic on the Sonny curve and its Ristretto group with the JAX
 package's tensor boundary (int32 [..., 22] limbs, radix 2^12).  The hot
-paths -- field multiply (K1), power chains (K2), the oblivious ladder (K3),
-the signed windowed multiply (K4), batched point addition (K5), and MSM's
-bucket accumulation (K7) and window combine (K8) -- are hand-written CUDA
-kernels for sm_90a, built from ``csrc/`` at first use; on CPU tensors the
-same algebra runs in plain PyTorch.  This package never imports jax.
+paths -- field multiply (K1), power chains (K2), the oblivious ladder (K3,
+and K10, its own entry into the same kernel), the signed windowed multiply
+(K4), batched point addition (K5), the fixed-base comb of key generation
+(K6), and MSM's bucket accumulation (K7) and window combine (K8) -- are
+hand-written CUDA kernels for sm_90a, built from ``csrc/`` at first use;
+on CPU tensors the same algebra runs in plain PyTorch.  This package never
+imports jax.
 """
 
 from .field import FieldElement

@@ -3,7 +3,8 @@
 //
 // Replaces the block helpers of zerocaf_tpu/ops/pallas/field_kernels.py
 // (_school_cols/_sq_cols, _carry3, _fold_once, _c1, _mul_const, _pdbl_block,
-// _madd_block, _padd_ext_block) with one thread per lane: a field element is
+// _madd_block, _madd_affine_kernel's 7M addition, _padd_ext_block) with one
+// thread per lane: a field element is
 // 22 int32 limbs held by one thread, a product is 43 int32 columns.
 //
 // The limb algebra is the reference's, step for step, so the kernels agree
@@ -250,6 +251,29 @@ __device__ __forceinline__ void madd(Pt& Q, const Pt& e) {
   Fe F = fe_sub(ZZ2, TT);
   fe_c1(F);
   Fe G = fe_add(ZZ2, TT);
+  fe_c1(G);
+  const Fe H = fe_add(PP, MM);         // 2-deep
+  fe_mul(Q.X, E, F, 0);
+  fe_mul(Q.Y, G, H, 0);
+  fe_mul(Q.Z, F, G, 0);
+  fe_mul(Q.T, E, H, 0);
+}
+
+// Extended + affine-Niels addition, 7M: (ep, em, et) = (y+x, y-x, 2dxy)
+// with canonical limbs, et possibly negated (a signed comb digit).  Z2 is
+// 2Z in place of madd's Z * entry.Z.
+__device__ __forceinline__ void madd_affine(Pt& Q, const Fe& ep, const Fe& em,
+                                            const Fe& et) {
+  Fe PP, MM, TT;
+  fe_mul(PP, fe_add(Q.Y, Q.X), ep, 0);
+  fe_mul(MM, fe_sub(Q.Y, Q.X), em, 0);
+  fe_mul(TT, Q.T, et, 0);
+  const Fe Z2 = fe_add(Q.Z, Q.Z);      // 2-deep
+  Fe E = fe_sub(PP, MM);
+  fe_c1(E);
+  Fe F = fe_sub(Z2, TT);
+  fe_c1(F);
+  Fe G = fe_add(Z2, TT);
   fe_c1(G);
   const Fe H = fe_add(PP, MM);         // 2-deep
   fe_mul(Q.X, E, F, 0);

@@ -1,6 +1,7 @@
-// Hopper kernels K1-K5 (field multiply, power chains, the two ladders and
-// batched point addition), one thread per lane, and a plain C launcher per
-// kernel (bound with ctypes by zerocaf_tpu_torch/ops/kernels/build.py).
+// Hopper kernels K1-K6 and K10 (field multiply, power chains, the ladders,
+// batched point addition and the fixed-base comb), one thread per lane, and
+// a plain C launcher per kernel (bound with ctypes by
+// zerocaf_tpu_torch/ops/kernels/build.py).
 // Every launcher enqueues on the stream it is given and returns
 // cudaGetLastError().
 //
@@ -13,7 +14,10 @@
 // compiler.
 //
 // Constant time: the ladders read every table entry at every window and
-// blend with masks; no load is indexed by a secret digit.
+// blend with masks; no load is indexed by a secret digit.  The comb (K6) is
+// the exception: it loads the table entry at the secret digit, as the
+// reference and the JAX package do (docs/CONSTANT_TIME.md: not oblivious at
+// cache-line granularity).
 
 #include <cuda_runtime.h>
 
@@ -89,9 +93,11 @@ __global__ void __launch_bounds__(BLOCK)
   fe_store(out, lane, r);
 }
 
-// K3 and K4 -- replace field_kernels.py:scalar_mul_windowed_stepped
-// (_table_kernel, _step_kernel) and scalar_mul_windowed_signed
-// (_step_kernel_signed, _signed_recode).  k*P over nwin windows of `width`
+// K3, K4 and K10 -- replace field_kernels.py:scalar_mul_windowed_stepped
+// (_table_kernel, _step_kernel), scalar_mul_windowed_signed
+// (_step_kernel_signed, _signed_recode) and scalar_mul_windowed_fused
+// (_windowed_kernel: K10 is this kernel with is_signed = 0, entered by its
+// own wrapper).  k*P over nwin windows of `width`
 // bits, LSB-first in `win` ([n][nwin]).  Unsigned: a 2^width-entry Niels
 // table.  Signed: the windows are recoded per lane to digits in
 // [-2^(w-1), 2^(w-1)) (the top carry is dropped; it is zero for canonical
@@ -238,6 +244,109 @@ __global__ void __launch_bounds__(BLOCK)
   fe_store(out + 3 * plane, lane, P.T);
 }
 
+// K6 -- replaces field_kernels.py:fixed_base_mul_stepped (_madd_affine_kernel,
+// _madd_packed_core, _madd_affine_packed_kernel, _madd2_affine_packed_kernel
+// and the XLA gather glue of its five variants).  B*k over nwin windows of
+// `width` bits, LSB-first in `win` ([n][nwin]): per window, LSB first, the
+// entry at the digit is loaded from the shared comb table and added with
+// one 7M mixed addition; no doublings.  Signed: the digits are recoded on
+// the way up (digit + carry, minus 2^width at or above 2^(width-1)), the
+// entry at |d| is loaded and the sign swaps y+x with y-x and negates 2dxy.
+// Digits are taken mod 2^width, so every load is inside the table.
+//
+// The table is [nwin][nent][words] int32 in one of two layouts: rows (the
+// three coordinates' 22 limbs, words = 68) or packed (limb i | limb i+11 <<
+// 12, words = 36; COMB_WORDS in field_kernels.py); both pad an entry to a multiple of 16 bytes, so it
+// arrives in 16-byte loads.  The load is indexed by the secret digit (not
+// oblivious at cache-line granularity, as in the reference).  One thread
+// runs all windows of its lane in one launch with Q in registers; the TPU
+// ran one program per window pair with Q through HBM between them.  Bound
+// by integer multiply-adds (7 field multiplies a window, 126 a lane at
+// width 14): the table entries are 272 or 144 bytes a window a lane from
+// an 18-40 MB table that mostly stays in the 50 MB L2.
+constexpr int ROWS_WORDS = 68;
+constexpr int PACKED_WORDS = 36;
+
+template <int WORDS>
+__device__ __forceinline__ void comb_load(int32_t (&buf)[WORDS],
+                                          const int32_t* entry) {
+  const int4* src = reinterpret_cast<const int4*>(entry);
+#pragma unroll
+  for (int k = 0; k < WORDS / 4; ++k) {
+    const int4 v = __ldg(src + k);
+    buf[4 * k] = v.x;
+    buf[4 * k + 1] = v.y;
+    buf[4 * k + 2] = v.z;
+    buf[4 * k + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void comb_entry(Fe (&e)[3], const int32_t* entry,
+                                           int packed) {
+  if (packed) {
+    int32_t buf[PACKED_WORDS];
+    comb_load(buf, entry);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+#pragma unroll
+      for (int k = 0; k < 11; ++k) {
+        e[j].v[k] = buf[11 * j + k] & MASK;
+        e[j].v[k + 11] = buf[11 * j + k] >> W;
+      }
+    }
+  } else {
+    int32_t buf[ROWS_WORDS];
+    comb_load(buf, entry);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+#pragma unroll
+      for (int k = 0; k < L; ++k) e[j].v[k] = buf[L * j + k];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK)
+    k_comb(const int32_t* __restrict__ tbl, const int32_t* __restrict__ win,
+           int nwin, int width, int is_signed, int nent, int packed,
+           int32_t* __restrict__ out, int n) {
+  const int lane = lane_index();
+  if (lane >= n) return;
+  const int32_t* wl = win + (size_t)lane * nwin;
+  const int h = 1 << (width - 1), full = 1 << width;
+  const int words = packed ? PACKED_WORDS : ROWS_WORDS;
+  Pt Q;
+  Q.X = fe_small(0);
+  Q.Y = fe_small(1);
+  Q.Z = fe_small(1);
+  Q.T = fe_small(0);
+  int carry = 0;
+  for (int w = 0; w < nwin; ++w) {
+    int d = wl[w] & (full - 1);
+    if (is_signed) {
+      d += carry;
+      carry = d >= h;
+      d -= carry * full;
+    }
+    const int32_t s = -(int32_t)(d < 0);
+    const int a = (d ^ s) - s;
+    Fe e[3];
+    comb_entry(e, tbl + ((size_t)w * nent + a) * words, packed);
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const int32_t p = e[0].v[k], q = e[1].v[k];
+      e[0].v[k] = (q & s) | (p & ~s);
+      e[1].v[k] = (p & s) | (q & ~s);
+      e[2].v[k] = (e[2].v[k] ^ s) - s;
+    }
+    madd_affine(Q, e[0], e[1], e[2]);
+  }
+  const size_t plane = L * (size_t)n;
+  fe_store(out, lane, Q.X);
+  fe_store(out + plane, lane, Q.Y);
+  fe_store(out + 2 * plane, lane, Q.Z);
+  fe_store(out + 3 * plane, lane, Q.T);
+}
+
 inline int blocks_for(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 }  // namespace zc
@@ -279,6 +388,18 @@ int zc_padd(const int32_t* p0, const int32_t* p1, const int32_t* p2,
   const zc::PaddIn q = {{q0, q1, q2, q3}, q_so, q_si};
   zc::k_padd<<<zc::blocks_for(n), zc::BLOCK, 0,
                static_cast<cudaStream_t>(stream)>>>(p, q, out, n, inner);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tbl: [nwin][nent][words] comb table, rows (words 68) or packed (words
+// 36); win: [n][nwin] digits; out: [4][n][22].
+int zc_comb(const int32_t* tbl, const int32_t* win, int nwin, int width,
+            int is_signed, int nent, int packed, int32_t* out, int n,
+            void* stream) {
+  zc::k_comb<<<zc::blocks_for(n), zc::BLOCK, 0,
+               static_cast<cudaStream_t>(stream)>>>(tbl, win, nwin, width,
+                                                    is_signed, nent, packed,
+                                                    out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,8 @@ import numpy as np
 import torch
 
 from . import constants as C
-from .config import NUM_LIMBS
+from .config import LIMB_MASK, NUM_LIMBS
+from .ops.kernels import field_kernels as _fk
 
 
 def limbs_from_numpy(arr, device=None) -> torch.Tensor:
@@ -41,6 +42,24 @@ def point_to_numpy(p) -> tuple[np.ndarray, ...]:
     """The port's 4-tuple (or an EdwardsPoint) -> 4-tuple of numpy arrays."""
     coords = p._tuple() if hasattr(p, "_tuple") else p
     return tuple(limbs_to_numpy(c) for c in coords)
+
+
+def comb_table_from_numpy(arr, width: int, signed: bool, device=None,
+                          layout: str = "rows") -> torch.Tensor:
+    """A comb table as the JAX package keeps it (``_fixed_base_table`` or
+    ``_fixed_base_table_signed``: int32 [nwin, nent, 3, 22], canonical
+    limbs) -> the port's device table in the kernel's ``layout``
+    ("rows" or "packed", see ``field_kernels.comb_entries``)."""
+    a = np.asarray(arr)
+    want = _fk.comb_shape(width, signed)
+    if a.dtype != np.int32 or a.shape != want:
+        raise ValueError(f"expected an int32 {want} comb table for width "
+                         f"{width} (signed={signed}), got {a.dtype} {a.shape}")
+    if a.min() < 0 or a.max() > LIMB_MASK:
+        raise ValueError("comb table limbs must be canonical (0..4095)")
+    if layout not in _fk.COMB_WORDS:
+        raise ValueError(f"unknown comb table layout {layout!r}")
+    return _fk.comb_entries(torch.tensor(a, device=device), layout)
 
 
 def check_constants(ns) -> None:

@@ -9,15 +9,28 @@ oblivious ladder (K3 at width 1), ``mul_windowed`` the signed width-4
 windows (K4).  Both read every table entry at every step; no access is
 indexed by a secret digit.  The JAX package's ``take_along_axis`` windowed
 path is not ported: it is not oblivious (docs/CONSTANT_TIME.md).
+
+The one exception is ``basepoint_mul``, the fixed-base comb (K6) that key
+generation runs: it loads one entry of a shared table per window at the
+secret digit, so it is not oblivious at cache-line granularity -- as in
+the reference and the JAX package (docs/CONSTANT_TIME.md).  Its tables
+are built from the port's oracle at first use and cached as ``.npy``
+under ``~/.cache/zerocaf_tpu_torch/``, in the JAX package's file names
+and format.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from .. import constants as C
+from .. import interop
+from .. import oracle as o
 from ..ops import limb as _l
 from ..ops.kernels import field_kernels as _fk
 from ..ops.limb import FIELD as _F
@@ -80,6 +93,130 @@ def _const_point(limbs, shape, device):
                  for i in range(4))
 
 
+# ---------------------------------------------------------------------------
+# Fixed-base comb tables
+# ---------------------------------------------------------------------------
+
+COMB_WIDTH = 13          # explicit-width default: the unsigned comb
+COMB_WIDTH_SIGNED = 14   # basepoint_mul's default: the signed comb
+CACHE_DIR = "~/.cache/zerocaf_tpu_torch"
+
+_FIXED_BASE_TABLES: dict[tuple[int, bool], np.ndarray] = {}
+_COMB_DEVICE_TABLES: dict[tuple, torch.Tensor] = {}
+
+
+def comb_cache_path(width: int, signed: bool) -> Path:
+    name = f"comb_niels_{'s_' if signed else ''}w{width}.npy"
+    return Path(os.path.expanduser(CACHE_DIR)) / name
+
+
+def _limbs_of_ints(vals: list[int]) -> np.ndarray:
+    """Canonical python ints (< 2^256) -> int32 [len, 22] limbs."""
+    raw = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals),
+                        dtype=np.uint8).reshape(len(vals), 32)
+    return _l.bytes_to_limbs(torch.from_numpy(raw.copy())).numpy()
+
+
+def _build_comb_table(width: int, signed: bool) -> np.ndarray:
+    """Entry d of window w: (y+x, y-x, 2d*x*y) of the affine point
+    d * 2^(width*w) * B, from the oracle.  One batched inversion (Montgomery's
+    trick) a window turns its projective multiples affine."""
+    nwin, nent = _fk.comb_shape(width, signed)[:2]
+    out = np.empty((nwin, nent, 3, _l.L), np.int32)
+    base = o.BASEPOINT
+    for w in range(nwin):
+        pts = [o.IDENTITY]
+        for _ in range(1, nent):
+            pts.append(o.point_add(pts[-1], base))
+        prefix = [1]
+        for p in pts:
+            prefix.append(prefix[-1] * p[2] % o.P)
+        inv = o.finv(prefix[-1])
+        coords = [[], [], []]
+        for i in reversed(range(nent)):
+            zi = inv * prefix[i] % o.P
+            inv = inv * pts[i][2] % o.P
+            x, y = pts[i][0] * zi % o.P, pts[i][1] * zi % o.P
+            coords[0].append((y + x) % o.P)
+            coords[1].append((y - x) % o.P)
+            coords[2].append(2 * o.EDWARDS_D * x * y % o.P)
+        for j in range(3):
+            out[w, :, j] = _limbs_of_ints(coords[j][::-1])
+        base = o.mul_by_pow_2(base, width)
+    return out
+
+
+def _comb_table_host(width: int, signed: bool) -> np.ndarray:
+    """The comb table as host int32 [nwin, nent, 3, 22], from memory, the
+    disk cache, or the oracle (then published to the cache atomically: a
+    temporary file, then os.replace)."""
+    tbl = _FIXED_BASE_TABLES.get((width, signed))
+    if tbl is not None:
+        return tbl
+    cache = comb_cache_path(width, signed)
+    if cache.exists():
+        try:
+            tbl = np.load(cache)
+        except (OSError, ValueError):
+            tbl = None                 # truncated or corrupt file: rebuild
+        if tbl is not None and (tbl.shape != _fk.comb_shape(width, signed)
+                                or tbl.dtype != np.int32):
+            tbl = None                 # stale format: rebuild
+    if tbl is None:
+        tbl = _build_comb_table(width, signed)
+        try:
+            cache.parent.mkdir(parents=True, exist_ok=True)
+            tmp = cache.with_name(f"{cache.name}.{os.getpid()}.tmp.npy")
+            np.save(tmp, tbl)
+            os.replace(tmp, cache)
+        except OSError:
+            pass
+    _FIXED_BASE_TABLES[(width, signed)] = tbl
+    return tbl
+
+
+def _fixed_base_table(width: int = COMB_WIDTH) -> np.ndarray:
+    """[ceil(250/w), 2^w, 3, 22] affine-Niels comb table of the unsigned
+    comb: T[w][d] = (y+x, y-x, 2d*x*y) of d * 2^(width*w) * B."""
+    return _comb_table_host(width, False)
+
+
+def _fixed_base_table_signed(width: int) -> np.ndarray:
+    """[ceil(250/w), 2^(w-1)+1, 3, 22] table of the signed comb: the
+    non-negative multiples only, since negation is free in Niels form."""
+    return _comb_table_host(width, True)
+
+
+def comb_table(width: int, signed: bool, layout: str, device) -> torch.Tensor:
+    """The comb table in the kernel's ``layout`` on ``device``, uploaded
+    once and kept, so that a call uploads nothing."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (width, signed, layout, device)
+    t = _COMB_DEVICE_TABLES.get(key)
+    if t is None:
+        t = _COMB_DEVICE_TABLES[key] = interop.comb_table_from_numpy(
+            _comb_table_host(width, signed), width, signed, device, layout)
+    return t
+
+
+def _madd_niels(Q, entry):
+    """Mixed addition extended + affine-Niels (y+x, y-x, 2dxy), 7M: the
+    plain block of K6."""
+    return _fk._madd_affine_block(Q, entry)
+
+
+def _fixed_base_mul(windows, width: int = COMB_WIDTH):
+    """The unsigned comb (K6 on the rows table)."""
+    return _fk.fixed_base_mul_stepped(windows, width)
+
+
+def _fixed_base_mul_signed(windows, width: int):
+    """The signed comb (K6 on the packed table)."""
+    return _fk.fixed_base_mul_stepped(windows, width, signed=True, glue="packed2")
+
+
 _BASEPOINT_ROWS = tuple(C.BASEPOINT[i].copy() for i in range(4))
 _IDENTITY_ROWS = tuple(C.IDENTITY[i].copy() for i in range(4))
 
@@ -101,6 +238,20 @@ class EdwardsPoint:
     @classmethod
     def basepoint(cls, shape: tuple[int, ...] = (), device=None) -> "EdwardsPoint":
         return cls(*_const_point(_BASEPOINT_ROWS, tuple(shape), device))
+
+    @classmethod
+    def basepoint_mul(cls, scalar: Scalar, width: int | None = None) -> "EdwardsPoint":
+        """B*k by the fixed-base comb (K6): ceil(250/width) 7M mixed
+        additions, no doublings.  width None runs the signed comb at
+        COMB_WIDTH_SIGNED on the packed table; an explicit width the
+        unsigned comb at that width on the rows table.  The kernel on CUDA,
+        its plain version on the CPU: one route on both devices.  The
+        table read is indexed by the secret digit (see the module
+        docstring)."""
+        if width is None:
+            sw = COMB_WIDTH_SIGNED
+            return cls(*_fixed_base_mul_signed(scalar.windows(sw, -(-250 // sw)), sw))
+        return cls(*_fixed_base_mul(scalar.windows(width, -(-250 // width)), width))
 
     # -- group ops ----------------------------------------------------------
     def _tuple(self):

@@ -1,12 +1,15 @@
-"""Hand-written Hopper kernels K1-K5 and their plain PyTorch versions
-(zerocaf_tpu/ops/pallas/field_kernels.py counterpart).
+"""Hand-written Hopper kernels K1-K6 and K10 and their plain PyTorch
+versions (zerocaf_tpu/ops/pallas/field_kernels.py counterpart).
 
-  K1 ``mul_tiled``                    a*b mod p or mod r
-  K2 ``pow_tiled``                    a^e for a static exponent, width-4 windows
-  K3 ``scalar_mul_windowed_stepped``  unsigned windowed ladder (width 1: the
-                                      oblivious bit ladder)
-  K4 ``scalar_mul_windowed_signed``   signed width-4 windows, 9-entry table
-  K5 ``padd_tiled``                   batched unified extended addition
+  K1  ``mul_tiled``                    a*b mod p or mod r
+  K2  ``pow_tiled``                    a^e for a static exponent, width-4 windows
+  K3  ``scalar_mul_windowed_stepped``  unsigned windowed ladder (width 1: the
+                                       oblivious bit ladder)
+  K4  ``scalar_mul_windowed_signed``   signed width-4 windows, 9-entry table
+  K5  ``padd_tiled``                   batched unified extended addition
+  K6  ``fixed_base_mul_stepped``       fixed-base comb: B*k from a shared table
+  K10 ``scalar_mul_windowed_fused``    the unsigned windowed ladder as one
+                                       program (K3's kernel, its own entry)
 
 The CUDA sources are ``zerocaf_tpu_torch/csrc/{field.cuh,field_kernels.cu}``.
 Each wrapper checks its tensors (int32, limb axis 22, contiguous, one device)
@@ -447,10 +450,182 @@ def padd_tiled(p, q):
 padd_tiled.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K6: fixed-base comb
+# ---------------------------------------------------------------------------
+
+# int32 words of one entry of a device comb table, by layout: "rows" holds
+# the three coordinates' 22 limbs (66 words), "packed" two limbs a word,
+# limb i | limb i+11 << 12 (33 words); both padded so that every entry
+# starts on a 16-byte boundary for the kernel's 16-byte loads.
+COMB_WORDS = {"rows": 68, "packed": 36}
+_GLUE_LAYOUT = {"rows": "rows", "lanes": "rows", "packed": "packed",
+                "packed2": "packed"}
+MAX_COMB_WIDTH = 16
+
+
+def comb_shape(width: int, signed: bool) -> tuple[int, int, int, int]:
+    """[nwin, nent, 3, 22]: ceil(250/width) windows of 2^width entries, or
+    of 2^(width-1)+1 (the non-negative digits) for the signed comb."""
+    nent = (1 << (width - 1)) + 1 if signed else 1 << width
+    return (-(-250 // width), nent, 3, L)
+
+
+def comb_layout(glue: str = "rows", prefetch: bool = False) -> str:
+    """The device table layout that ``fixed_base_mul_stepped``'s ``glue``
+    and ``prefetch`` arguments select: "packed" for "packed" and "packed2",
+    "rows" for "rows", "lanes" and ``prefetch=True``."""
+    if glue not in _GLUE_LAYOUT:
+        raise ValueError(f"fixed_base_mul_stepped: unknown glue {glue!r}")
+    return "rows" if prefetch else _GLUE_LAYOUT[glue]
+
+
+def comb_entries(tbl: torch.Tensor, layout: str) -> torch.Tensor:
+    """A comb table [nwin, nent, 3, 22] of canonical limbs -> the kernel's
+    layout [nwin, nent, COMB_WORDS[layout]] on the same device."""
+    nwin, nent = tbl.shape[:2]
+    if layout == "packed":
+        words = (tbl[..., :11] | (tbl[..., 11:] << limb.W)).reshape(nwin, nent, 33)
+    else:
+        words = tbl.reshape(nwin, nent, 3 * L)
+    pad = torch.zeros((nwin, nent, COMB_WORDS[layout] - words.shape[-1]),
+                      dtype=torch.int32, device=tbl.device)
+    return torch.cat([words, pad], dim=-1).contiguous()
+
+
+def _comb_entry(tbl: torch.Tensor, layout: str, w: int, a: torch.Tensor):
+    """Entry a (per lane) of window w, unpacked: (y+x, y-x, 2dxy)."""
+    e = tbl[w][a]
+    if layout == "packed":
+        v = e[..., :33].unflatten(-1, (3, 11))
+        v = torch.cat([v & limb.MASK, v >> limb.W], dim=-1)
+    else:
+        v = e[..., :3 * L].unflatten(-1, (3, L))
+    return v.unbind(-2)
+
+
+def _madd_affine_block(Q, e):
+    """Extended + affine-Niels addition, 7M.  e = (y+x, y-x, 2dxy) with
+    canonical limbs, the last possibly negated (a signed digit)."""
+    X1, Y1, Z1, T1 = Q
+    PP, MM, TT = _mulb_n([Y1 + X1, Y1 - X1, T1], list(e))
+    Z2 = Z1 + Z1                       # 2-deep
+    E = _c1(PP - MM)
+    F = _c1(Z2 - TT)
+    G = _c1(Z2 + TT)
+    H = PP + MM                        # 2-deep
+    return _mulb_n([E, G, F, E], [F, H, G, H])
+
+
+def _comb_ref(tbl, windows, width: int, signed: bool, layout: str):
+    """The comb over a device table: digits mod 2^width (signed-recoded if
+    ``signed``), then per window, LSB first, the entry at |d| with the sign
+    applied by swapping y+x / y-x and negating 2dxy, and one 7M addition.
+    The recoding drops its top carry, which is 0 for canonical scalars at
+    every width the tables take (at width 14 the top window is at most
+    4095 < 2^13)."""
+    digits = windows & ((1 << width) - 1)
+    if signed:
+        digits = _signed_recode(digits, width)
+    zero = torch.zeros(windows.shape[:-1] + (L,), dtype=torch.int32,
+                       device=windows.device)
+    Q = identity_like((zero,))
+    for w in range(digits.shape[-1]):
+        d = digits[..., w]
+        s = (d < 0)[..., None]
+        ep, em, et = _comb_entry(tbl, layout, w, d.abs())
+        Q = _madd_affine_block(Q, (torch.where(s, em, ep), torch.where(s, ep, em),
+                                   torch.where(s, -et, et)))
+    return Q
+
+
+def _comb_args(windows, width: int, signed: bool, glue: str, prefetch: bool):
+    """Check the comb's arguments; returns (device table, layout)."""
+    from ...models import edwards as _ed
+
+    name = "fixed_base_mul_stepped"
+    if not isinstance(windows, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(windows).__name__}")
+    if windows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {windows.device}")
+    if not 1 + signed <= width <= MAX_COMB_WIDTH:
+        raise ValueError(f"{name}: unsupported width {width}")
+    layout = comb_layout(glue, prefetch)
+    _check_windows(name, windows, windows.shape[:-1])
+    nwin = comb_shape(width, signed)[0]
+    if windows.shape[-1] != nwin:
+        raise ValueError(f"{name}: width {width} takes {nwin} windows, got "
+                         f"{windows.shape[-1]}")
+    return _ed.comb_table(width, signed, layout, windows.device), layout
+
+
+def fixed_base_mul_stepped_ref(windows, width: int, signed: bool = False,
+                               glue: str = "rows", prefetch: bool = False):
+    """Plain version of K6, on the same device table as the kernel."""
+    tbl, layout = _comb_args(windows, width, signed, glue, prefetch)
+    return _comb_ref(tbl, windows, width, signed, layout)
+
+
+def fixed_base_mul_stepped(windows, width: int, signed: bool = False,
+                           glue: str = "rows", prefetch: bool = False):
+    """B*k by the fixed-base comb (K6): windows [..., ceil(250/width)]
+    int32, the scalar's unsigned width-bit digits LSB first; returns the
+    4-tuple of extended coordinates.  One 7M mixed addition a window from
+    the shared table of ``models.edwards``, no doublings.  ``signed``
+    recodes the digits to [-2^(width-1), 2^(width-1)) and reads |d| from
+    the half-size table, the sign applied by the Niels swap.
+
+    ``glue`` and ``prefetch`` keep the JAX signature.  Its five variants
+    differ only in where XLA's glue gathered and transposed the table
+    entries: Mosaic could not gather, so on the TPU that glue ran outside
+    the kernel.  The CUDA kernel gathers in its own body, so each value
+    runs the same hand-written kernel and selects only the table layout
+    it reads (``comb_layout``): "packed" and "packed2" the packed table,
+    "rows", "lanes" and ``prefetch=True`` the int32 rows.
+
+    The entry read is indexed by the (secret) digit: the comb is not
+    oblivious at cache-line granularity, as in the reference and the JAX
+    package (docs/CONSTANT_TIME.md)."""
+    tbl, layout = _comb_args(windows, width, signed, glue, prefetch)
+    if _on_cpu(windows):
+        return _comb_ref(tbl, windows, width, signed, layout)
+    batch = tuple(windows.shape[:-1])
+    out = torch.empty((4,) + batch + (L,), dtype=torch.int32, device=windows.device)
+    nwin = windows.shape[-1]
+    n = windows.numel() // nwin
+    if n:
+        _launch("fixed_base_mul_stepped", windows.device, "zc_comb", tbl,
+                windows, nwin, width, int(signed), tbl.shape[1],
+                int(layout == "packed"), out, n)
+        fixed_base_mul_stepped.launches += 1
+    return tuple(out.unbind(0))
+
+
+fixed_base_mul_stepped.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10: the unsigned windowed ladder as one program
+# ---------------------------------------------------------------------------
+
+
+def scalar_mul_windowed_fused(pt, windows, width: int = 4):
+    """k*P over unsigned width-bit windows [..., nwin] (LSB first), the
+    whole ladder -- per-lane table, doublings, one-hot reads -- in one
+    launch (K10).  The TPU needed a separate fused Pallas program for
+    this; on the card it is K3's kernel, entered here with its own launch
+    count.  Its plain version is ``scalar_mul_windowed_stepped_ref``."""
+    return _ladder(scalar_mul_windowed_fused, pt, windows, width, False)
+
+
+scalar_mul_windowed_fused.launches = 0
+
+
 def kernel_wrappers():
-    """The five wrappers, in kernel order K1..K5."""
+    """The seven wrappers, in kernel order K1..K6, K10."""
     return (mul_tiled, pow_tiled, scalar_mul_windowed_stepped,
-            scalar_mul_windowed_signed, padd_tiled)
+            scalar_mul_windowed_signed, padd_tiled, fixed_base_mul_stepped,
+            scalar_mul_windowed_fused)
 
 
 def reset_launch_counts() -> None:

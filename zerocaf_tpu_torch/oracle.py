@@ -237,6 +237,16 @@ def scalar_mul(p: ExtPoint, k: int) -> ExtPoint:
     return q
 
 
+def mul_by_pow_2(p: ExtPoint, k: int) -> ExtPoint:
+    return scalar_mul(p, 1 << k)
+
+
+def point_to_affine(p: ExtPoint) -> tuple[int, int]:
+    X, Y, Z, _ = p
+    zi = finv(Z)
+    return (fmul(X, zi), fmul(Y, zi))
+
+
 def find_xx(y: int) -> int:
     """xx = (y^2 - 1) / (d*y^2 - a)."""
     ys = fsquare(y)

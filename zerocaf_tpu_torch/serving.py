@@ -4,8 +4,9 @@
 An ``Engine`` serves fixed-size batches of 32-byte wire arrays on one
 device, the first CUDA card unless told otherwise.  Ragged traffic is padded
 to the engine batch with ``pad_batch`` (``pad_msm`` for MSM requests).  The
-port serves ``dh``, ``hash_to_group`` and ``msm``; ``keygen`` (fixed-base
-comb) and the pipelined wrapper are later slices (ROADMAP.md).
+port serves the JAX package's four workloads: ``keygen`` (fixed-base comb),
+``dh``, ``hash_to_group`` and ``msm``; the pipelined wrapper is a later
+slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,11 +41,14 @@ def pad_msm(points_wire: np.ndarray, scalar32: np.ndarray, batch: int):
 
 
 class Engine:
-    """Pinned-batch serving engine on one device.
+    """Pinned-batch serving engine on one device: keygen, dh, hash_to_group
+    and msm.  Secret scalars go through oblivious kernels, except in keygen,
+    whose fixed-base comb loads its table at the secret digit (see
+    ``keygen``).
 
     batch:  lanes per call (pad ragged requests with pad_batch).  32768 is
-            the JAX package's default; on the H100 it is the ECDH serving
-            size that chip_smoke.py drives.
+            the JAX package's default; on the H100 it is the keygen and
+            ECDH serving size that chip_smoke.py drives.
     device: where the wire arrays are computed; inputs are moved there.
             None means the first CUDA card, and raises where there is
             none; pass "cpu" to run the kernels' plain versions.
@@ -66,6 +70,19 @@ class Engine:
             raise ValueError(f"expected [{self.batch}, {width}] uint8, got "
                              f"{tuple(t.shape)}; pad with pad_batch or pad_msm")
         return t.contiguous()
+
+    def keygen(self, seed64):
+        """[batch, 64] uniform seed bytes -> (sk [batch, 32], pk [batch, 32]).
+
+        sk is the canonical encoding of the wide-reduced seed; pk the
+        Ristretto wire of sk * B by the fixed-base comb (K6, the signed
+        width-14 comb on the packed table).  The comb is the one served
+        path whose table load is indexed by a secret digit: it is not
+        oblivious at cache-line granularity, as in the reference and the
+        JAX package (docs/CONSTANT_TIME.md)."""
+        sk = Scalar.from_bytes_wide(self._wire(seed64, 64))
+        pk = _ri._compress(EdwardsPoint.basepoint_mul(sk)._tuple())
+        return sk.to_bytes(), pk
 
     def dh(self, sk32, peer32):
         """[batch, 32] secret scalar bytes + [batch, 32] peer Ristretto wire
