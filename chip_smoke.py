@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ECDH serving path, its MSM path and its keygen
-path once on one CUDA card.
+"""Drive the PyTorch port's ECDH serving path, its MSM path, its keygen
+path and its sharded MSM path once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -49,7 +49,24 @@ Phases, in order (any failure raises, so the exit code is non-zero):
  19. K10 at 32768 lanes, width 4: its one launch counted, equal to its
      plain version and, canonically, to K4 on the same windows;
  20. rate: keygen ops/s (median of 11 calls, with the min and max), and
-     one Engine.keygen call under torch.profiler.
+     one Engine.keygen call under torch.profiler;
+ 21. K9 (one group of 4 windows, fold 0 and 2), K11 (one window) and K12
+     (a window pair) against their plain versions at 2^12 points, c = 6,
+     then at the shapes of the 2^20 path with their times and bounds; K7
+     with fold 2 checked at 2^12 and timed at 2^20;
+ 22. _msm_dense at 2^20 points, c = 6, with k = 1, k = 2, k = 4 and
+     single_call=False, fold = 2, and fused_combine=False: each equals the
+     oracle's aggregate, with its time and its own launch counts (the k = 1
+     and k = 2 calls are K11's and K12's main path);
+ 23. msm_sharded at 2^20 on one rank over NCCL, dense + shard_combine (the
+     pod configuration, K9's main path): equal to the oracle and to
+     Engine.msm, K9 launched 11 times, K7 and K8 not at all, the median of
+     5 calls; then dense alone (K7 + K8);
+ 24. msm_sharded on 4 gloo ranks sharing the card (spawned processes; the
+     parent built the kernels), 2^18 points each: every rank's total
+     equals the oracle's, with its launches, times and peak memory;
+ 25. msm_with_checkpoints at 2^16 points in 4 blocks, and the same job
+     resumed from its file after block 2, equal to the one-shot MSM.
 The line before the last is a JSON object with one entry per kernel, with
 its bound (the larger of its bytes over the memory rate and its integer
 multiply-adds over the card's multiply-add rate); the last line is
@@ -59,6 +76,7 @@ multiply-adds over the card's multiply-add rate); the last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import time
 
@@ -75,6 +93,10 @@ MSM_SMALL = 1 << 14           # K7/K8 checks and the route cross-check
 MSM_C = 6                     # Engine.msm's default window width
 MSM_SWEEP = (5, 6, 7)         # window widths timed at 2^20
 MSM_RATE_CALLS = 5
+MSM_NWIN = 42                 # windows at c = 6
+MSM_CHECK = 1 << 12           # K9, K11 and K12 checked at 2^12 points first
+FOLD_CHECKED = 2              # lane rounds folded after K7 / K9 in the checks
+CKPT_BATCH = 1 << 16          # msm_with_checkpoints: 4 blocks of 2^14
 SEED = 20261016
 ECDH_KERNELS = ("mul_tiled", "pow_tiled", "scalar_mul_windowed_stepped",
                 "scalar_mul_windowed_signed")
@@ -409,8 +431,12 @@ def main() -> None:
     phase("rates", f"{card}: {', '.join(rates)}, ladder {BATCH / k3_ms * 1e3:.0f} "
           f"mults/s, signed windowed {BATCH / k4_ms * 1e3:.0f} mults/s, batch {BATCH}")
 
-    counts.update(msm_phases(dev, rng, roof, card, pts, record))
+    msm_main, msm_ctx = msm_phases(dev, rng, roof, card, pts, record)
+    counts.update(msm_main)
     counts.update(keygen_phases(dev, rng, roof, card, pts, s, record))
+    counts.update(msm_option_phases(dev, roof, card, msm_ctx, record))
+    counts.update(sharded_phases(dev, card, msm_ctx))
+    checkpoint_phase(dev, msm_ctx)
 
     replaces = {"mul_tiled": (SOURCE, TPU_KERNELS, 1133),
                 "pow_tiled": (SOURCE, TPU_KERNELS, 1030),
@@ -420,7 +446,10 @@ def main() -> None:
                 "fixed_base_mul_stepped": (SOURCE, TPU_KERNELS, 437),
                 "scalar_mul_windowed_fused": (SOURCE, TPU_KERNELS, 909),
                 "bucket_accum_all": (MSM_SOURCE, TPU_MSM_KERNELS, 392),
-                "combine_tables": (MSM_SOURCE, TPU_MSM_KERNELS, 247)}
+                "combine_tables": (MSM_SOURCE, TPU_MSM_KERNELS, 247),
+                "bucket_accum_k": (MSM_SOURCE, TPU_MSM_KERNELS, 339),
+                "bucket_accum": (MSM_SOURCE, TPU_MSM_KERNELS, 141),
+                "bucket_accum2": (MSM_SOURCE, TPU_MSM_KERNELS, 175)}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": f"{tpu}:{line}", "launches": counts[name],
                 **results[name]} for name, (src, tpu, line) in replaces.items()]
@@ -659,7 +688,8 @@ def msm_phases(dev, rng, roof, card, ecdh_pts, record) -> dict[str, int]:
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     profile_call("msm profile", f"one Engine.msm call at {MSM_BATCH}, c {MSM_C}",
                  lambda: eng.msm(wire, sc))
-    return counts
+    return counts, dict(wire=wire, sc=sc, engine=got.cpu().numpy().tobytes(),
+                        oracle_wire=oracle_wire)
 
 
 def keygen_phases(dev, rng, roof, card, pts, s, record) -> dict[str, int]:
@@ -785,6 +815,311 @@ def keygen_phases(dev, rng, roof, card, pts, s, record) -> dict[str, int]:
                  lambda: eng.keygen(seeds_t))
     return {"fixed_base_mul_stepped": counts["fixed_base_mul_stepped"],
             "scalar_mul_windowed_fused": k10}
+
+
+def option_counts() -> dict[str, int]:
+    """The launch counts of every MSM kernel: K5, K7, K8, K9, K11, K12."""
+    from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
+    from zerocaf_tpu_torch.ops.kernels import msm_kernels as mk
+
+    return {"padd_tiled": fk.padd_tiled.launches, **mk.launch_counts()}
+
+
+def reset_counts() -> None:
+    from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
+    from zerocaf_tpu_torch.ops.kernels import msm_kernels as mk
+
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    mk.reset_launch_counts()
+
+
+def host_ms(fn):
+    """(result, host ms) of one call ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def msm_option_phases(dev, roof, card, ctx, record) -> dict[str, int]:
+    """Phases 21-22: K9, K11 and K12 (K7's kernel for one window group)
+    against their plain versions, with and without the fold; then every
+    option of _msm_dense at 2^20 points against the oracle, each call with
+    its own launch counts.  Returns the launches of K11 and K12 in the
+    k = 1 and k = 2 calls, their main path."""
+    import importlib
+
+    import zerocaf_tpu_torch as zt
+    from zerocaf_tpu_torch.models import ristretto as ri
+    from zerocaf_tpu_torch.ops.kernels import msm_kernels as mk
+
+    tmsm = importlib.import_module("zerocaf_tpu_torch.parallel.msm")
+    wire, sc = ctx["wire"], ctx["sc"]
+
+    # 21. the group entries at 2^12 points, then at the 2^20 path's shapes
+    entries = (("K9 bucket_accum_k", mk.bucket_accum_k, mk.bucket_accum_k_ref,
+                tmsm.DENSE_K, lambda d: d[0], (0, FOLD_CHECKED)),
+               ("K11 bucket_accum", mk.bucket_accum, mk.bucket_accum_ref, 1,
+                lambda d: d[0, :1].contiguous(), (0,)),
+               ("K12 bucket_accum2", mk.bucket_accum2, mk.bucket_accum2_ref, 2,
+                lambda d: d[0, :2].contiguous(), (0,)))
+
+    def call(fn, pst, d, nb, k, lanes, fold):
+        if fn in (mk.bucket_accum_k, mk.bucket_accum_k_ref):
+            return fn(pst, d, nb, k, lanes, fold)
+        return fn(pst, d, nb, lanes)
+
+    for n in (MSM_CHECK, MSM_BATCH):
+        pts_n = ri._decompress(wire[:n])[0]
+        pst, dig, nb, lanes, _ = msm_inputs(pts_n, zt.Scalar.from_bytes(sc[:n])[0],
+                                            MSM_C)
+        for label, fn, ref, k, pick, folds in entries:
+            d = pick(dig)
+            for fold in folds:
+                got = call(fn, pst, d, nb, k, lanes, fold)
+                want, plain = host_ms(lambda: call(ref, pst, d, nb, k, lanes, fold))
+                err = max_abs_err(got, want)
+                del got, want
+                msg = (f"{n} points, c {MSM_C}, k {k}, {lanes} lanes, fold {fold}: "
+                       f"max_abs_err {err} (tolerance {TOLERANCE})")
+                if err > TOLERANCE:
+                    raise AssertionError(f"{label} differs from its plain version: {msg}")
+                if n == MSM_BATCH:
+                    ms = cuda_ms(lambda: call(fn, pst, d, nb, k, lanes, fold), 3)
+                    bound = roof(*k7_work(d.view(1, k, -1), nb, lanes))
+                    msg += (f", kernel {ms:.3f} ms, plain {plain:.1f} ms (one call), "
+                            f"bound {bound['bound_ms']:.3f} ms by {bound['bound_by']}")
+                    if fold == 0:
+                        record(fn, err, ms, plain, bound)
+                    else:
+                        record(fn, err)
+                else:
+                    record(fn, err)
+                phase(label, msg)
+        # K7's fold, checked at 2^12 and timed at 2^20 (its plain version
+        # there is phase 13's ten seconds again)
+        if n == MSM_CHECK:
+            err = max_abs_err(mk.bucket_accum_all(pst, dig, nb, lanes, FOLD_CHECKED),
+                              mk.bucket_accum_all_ref(pst, dig, nb, lanes, FOLD_CHECKED))
+            phase("K7 bucket_accum_all", f"{n} points, fold {FOLD_CHECKED}: "
+                  f"max_abs_err {err} (tolerance {TOLERANCE})")
+            if err > TOLERANCE:
+                raise AssertionError("K7 with fold differs from its plain version")
+            record(mk.bucket_accum_all, err)
+        else:
+            ms = cuda_ms(lambda: mk.bucket_accum_all(pst, dig, nb, lanes,
+                                                     FOLD_CHECKED), 3)
+            phase("K7 bucket_accum_all", f"{n} points, fold {FOLD_CHECKED}: "
+                  f"{ms:.3f} ms (K7 and {FOLD_CHECKED} K5 rounds over its tables)")
+        del pst, dig
+    torch.cuda.synchronize()
+
+    # 22. the options of _msm_dense at 2^20, each against the oracle
+    pts = ri._decompress(wire)[0]
+    nwin = tmsm.nwin_for(MSM_C)
+    win = zt.Scalar.from_bytes(sc)[0].windows(MSM_C, nwin)
+    want = ctx["oracle_wire"](MSM_BATCH)
+    options = (("k=1", dict(k=1), "bucket_accum"),
+               ("k=2", dict(k=2), "bucket_accum2"),
+               ("k=4, single_call=False", dict(k=4, single_call=False), "bucket_accum_k"),
+               (f"fold={FOLD_CHECKED}", dict(fold=FOLD_CHECKED), "bucket_accum_all"),
+               ("fused_combine=False", dict(fused_combine=False), "bucket_accum_all"))
+    counts = {}
+    for label, kw, entry in options:
+        reset_counts()
+        total, ms = host_ms(lambda: tmsm._msm_dense(pts, win, MSM_C, nwin, **kw))
+        launched = {k: v for k, v in option_counts().items() if v}
+        ok = ri._compress(total).cpu().numpy().tobytes() == want
+        phase("msm dense options", f"{label}: {ms:.1f} ms (one call, {card}), "
+              f"equals the oracle's aggregate: {ok}; launches {json.dumps(launched)}")
+        needed = {entry, "padd_tiled"} | ({"combine_tables"} if kw.get(
+            "fused_combine", True) else set())
+        if not ok or needed - set(launched):
+            raise AssertionError(f"_msm_dense({label}) at 2^20: wrong sum or "
+                                 f"kernels not launched: {needed - set(launched)}")
+        if entry in ("bucket_accum", "bucket_accum2"):
+            counts[entry] = launched[entry]
+    return counts
+
+
+def sharded_phases(dev, card, ctx) -> dict[str, int]:
+    """Phases 23-24: msm_sharded at 2^20 points on one rank over NCCL
+    (dense, shard_combine: the pod configuration; then dense alone), and on
+    4 gloo ranks sharing the card, 2^18 points each.  Returns the launches
+    of K9 in the 1-rank pod call, its main path."""
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    import zerocaf_tpu_torch as zt
+    from zerocaf_tpu_torch.config import MeshConfig
+    from zerocaf_tpu_torch.models import ristretto as ri
+    from zerocaf_tpu_torch.parallel import (batch_sharding, make_mesh,
+                                            msm_sharded)
+
+    wire, sc = ctx["wire"], ctx["sc"]
+    want = ctx["oracle_wire"](MSM_BATCH)
+
+    def free_port():
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            return sk.getsockname()[1]
+
+    # 23. one rank over NCCL on cuda:0
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(MeshConfig(n_devices=1), devices=dev)
+        shard = batch_sharding(mesh)
+        pts = zt.EdwardsPoint(*ri._decompress(shard(wire))[0])
+        s = zt.Scalar.from_bytes(shard(sc))[0]
+        pod = dict(c=MSM_C, dense=True, shard_combine=True)
+        reset_counts()
+        total, first_ms = host_ms(lambda: msm_sharded(pts, s, mesh, **pod))
+        launched = option_counts()
+        got = ri._compress(total._tuple()).cpu().numpy().tobytes()
+        ngrp = -(-MSM_NWIN // 4)
+        if got != want or got != ctx["engine"]:
+            raise AssertionError("msm_sharded (1 rank, pod) differs from the "
+                                 "oracle or Engine.msm")
+        if (launched["bucket_accum_k"] != ngrp or launched["bucket_accum_all"]
+                or launched["combine_tables"] or not launched["padd_tiled"]):
+            raise AssertionError(f"msm_sharded (1 rank, pod) launches: {launched}")
+        t = call_ms(lambda: msm_sharded(pts, s, mesh, **pod), MSM_RATE_CALLS)
+        phase("msm_sharded 1 rank", f"{MSM_BATCH} points, NCCL on {mesh.device}, "
+              f"dense + shard_combine, c {MSM_C}: equals the oracle and "
+              f"Engine.msm; launches {json.dumps(launched)}; {card}: median "
+              f"{t[len(t) // 2]:.1f} ms (min {t[0]:.1f}, max {t[-1]:.1f} over "
+              f"{len(t)} calls; first call {first_ms:.1f} ms)")
+        k9 = launched["bucket_accum_k"]
+        profile_call("msm_sharded profile", f"one 1-rank pod call at {MSM_BATCH}",
+                     lambda: msm_sharded(pts, s, mesh, **pod))
+        reset_counts()
+        total, ms = host_ms(lambda: msm_sharded(pts, s, mesh, c=MSM_C, dense=True))
+        launched = {k: v for k, v in option_counts().items() if v}
+        if ri._compress(total._tuple()).cpu().numpy().tobytes() != want or (
+                launched.get("bucket_accum_all") != 1
+                or launched.get("combine_tables") != 1):
+            raise AssertionError(f"msm_sharded (1 rank, dense): {launched}")
+        phase("msm_sharded 1 rank", f"dense without shard_combine: equals the "
+              f"oracle, {ms:.1f} ms (one call), launches {json.dumps(launched)}")
+        del pts, s, total
+    finally:
+        dist.destroy_process_group()
+
+    # 24. four gloo ranks sharing cuda:0, 2^18 points each
+    world = 4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        np.save(f"{tmpdir}/wire.npy", wire.cpu().numpy())
+        np.save(f"{tmpdir}/sc.npy", sc.cpu().numpy())
+        os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
+            "CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        os.environ["MASTER_ADDR"] = "localhost"
+        os.environ["MASTER_PORT"] = str(free_port())
+        t0 = time.perf_counter()
+        mp.spawn(gloo_rank, args=(world, str(dev), tmpdir, want.hex()),
+                 nprocs=world, join=True)
+        wall = time.perf_counter() - t0
+        with open(f"{tmpdir}/ranks.json") as f:
+            ranks = json.load(f)
+    ngrp = -(-MSM_NWIN // 4)
+    for r in ranks:
+        phase("msm_sharded 4 ranks", f"rank {r['rank']}: {MSM_BATCH // world} "
+              f"points on {r['device']}, equals the oracle: {r['ok']}; launches "
+              f"{json.dumps(r['launches'])}; calls {r['ms']} ms; peak memory "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB")
+        if not r["ok"] or r["launches"]["bucket_accum_k"] != ngrp:
+            raise AssertionError(f"msm_sharded on 4 ranks, rank {r['rank']}")
+    phase("msm_sharded 4 ranks", f"gloo, {world} processes sharing the card "
+          f"({card}), dense + shard_combine, c=None: every rank's total equals "
+          f"the oracle's aggregate; {wall:.1f}s from spawn to join")
+    return {"bucket_accum_k": k9}
+
+
+def gloo_rank(rank: int, world: int, device: str, tmpdir: str,
+              want_hex: str) -> None:
+    """One of phase 24's ranks (a spawned process): its block of the 2^20
+    points, msm_sharded on the parent's card (with the kernels the parent
+    built), and its
+    launches, times and peak memory, gathered to rank 0, which writes
+    them for the parent."""
+    import torch.distributed as dist
+
+    import zerocaf_tpu_torch as zt
+    from zerocaf_tpu_torch.config import MeshConfig
+    from zerocaf_tpu_torch.models import ristretto as ri
+    from zerocaf_tpu_torch.parallel import (batch_sharding,
+                                            initialize_distributed, make_mesh,
+                                            msm_sharded)
+
+    initialize_distributed(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+                           world, rank, backend="gloo")
+    try:
+        mesh = make_mesh(MeshConfig(n_devices=world), devices=device)
+        shard = batch_sharding(mesh)
+        pts = zt.EdwardsPoint(*ri._decompress(
+            shard(torch.from_numpy(np.load(f"{tmpdir}/wire.npy"))))[0])
+        s = zt.Scalar.from_bytes(shard(torch.from_numpy(np.load(f"{tmpdir}/sc.npy"))))[0]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        dist.barrier()
+        pod = dict(dense=True, shard_combine=True)
+        total, first = host_ms(lambda: msm_sharded(pts, s, mesh, **pod))
+        launches = option_counts()
+        times = [first]
+        for _ in range(2):
+            dist.barrier()
+            times.append(host_ms(lambda: msm_sharded(pts, s, mesh, **pod))[1])
+        got = ri._compress(total._tuple()).cpu().numpy().tobytes().hex()
+        mine = {"rank": rank, "device": str(mesh.device), "ok": got == want_hex,
+                "launches": {k: v for k, v in launches.items() if v},
+                "ms": [round(t, 1) for t in times],
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+        gathered = [None] * world if rank == 0 else None
+        dist.gather_object(mine, gathered, dst=0)
+        if rank == 0:
+            with open(f"{tmpdir}/ranks.json", "w") as f:
+                json.dump(gathered, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def checkpoint_phase(dev, ctx) -> None:
+    """Phase 25: msm_with_checkpoints at 2^16 points in 4 blocks, and the
+    same job stopped after block 2 and resumed from its file, against the
+    one-shot MSM and the oracle."""
+    import tempfile
+
+    import zerocaf_tpu_torch as zt
+    from zerocaf_tpu_torch.models import ristretto as ri
+    from zerocaf_tpu_torch.parallel import checkpoint, msm
+
+    n, block = CKPT_BATCH, CKPT_BATCH // 4
+    pts = zt.EdwardsPoint(*ri._decompress(ctx["wire"][:n])[0])
+    s = zt.Scalar.from_bytes(ctx["sc"][:n])[0]
+
+    def enc(p):
+        return ri._compress(p._tuple()).cpu().numpy().tobytes()
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        one_shot = enc(msm(pts, s))
+        full = enc(checkpoint.msm_with_checkpoints(pts, s, block, f"{tmpdir}/a.ckpt"))
+        checkpoint.msm_with_checkpoints(pts[:2 * block], s[:2 * block], block,
+                                        f"{tmpdir}/b.ckpt")
+        stopped_at = checkpoint.load(f"{tmpdir}/b.ckpt", dev)[1]
+        resumed = enc(checkpoint.msm_with_checkpoints(pts, s, block,
+                                                      f"{tmpdir}/b.ckpt"))
+    if not (one_shot == full == resumed == ctx["oracle_wire"](n)) or stopped_at != 2:
+        raise AssertionError("msm_with_checkpoints differs from the one-shot MSM")
+    phase("checkpoint", f"{n} points in 4 blocks: the checkpointed sum, and the "
+          f"job resumed from its file after block {stopped_at}, equal the "
+          f"one-shot MSM and the oracle")
 
 
 def profile_call(label: str, what: str, fn) -> None:

@@ -56,6 +56,8 @@ def test_oracle_is_the_jax_package_file():
 def test_import_leaves_jax_out():
     code = ("import sys, zerocaf_tpu_torch, zerocaf_tpu_torch.interop, "
             "zerocaf_tpu_torch.oracle, zerocaf_tpu_torch.parallel.msm, "
+            "zerocaf_tpu_torch.parallel.mesh, zerocaf_tpu_torch.parallel.comm, "
+            "zerocaf_tpu_torch.parallel.checkpoint, "
             "zerocaf_tpu_torch.serving, zerocaf_tpu_torch.models.edwards; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'zerocaf_tpu')]; "

@@ -385,3 +385,187 @@ def test_combine_tables_kernel_equals_plain(cuda, nwin, c):
 def test_engine_msm_on_the_card(cuda, case):
     wire, ok = Engine(batch=N).msm(case["wire"], case["sc"])
     assert bool(ok) and wire.cpu().numpy().tobytes() == case["want"]
+
+
+# --- K9, K11, K12 and the fold: K7's kernel for one window group -----------
+
+
+def _group_inputs(case, c, n=40, ngrp=3, k=4):
+    rng = np.random.default_rng(72 + c)
+    nb = (1 << (c - 1)) + 1
+    pts = torch.stack(_tpt(_coords([case["pts"][i % N] for i in range(n)])))
+    dig = rng.integers(-(nb - 1), nb, (ngrp, k, n)).astype(np.int32)
+    dig[rng.random(dig.shape) < 0.1] = 0
+    return pts, torch.tensor(dig), nb
+
+
+def test_group_entries_equal_k7_restricted(case):
+    """K9 on group g, K11 on one window and K12 on a pair give K7's tables
+    for those windows limb for limb (plain versions, on the CPU)."""
+    pts, dig, nb = _group_inputs(case, 4)
+    lanes = 8
+    allt = mk.bucket_accum_all(pts, dig, nb, lanes)
+    for g in range(dig.shape[0]):
+        assert torch.equal(mk.bucket_accum_k(pts, dig[g], nb, 4, lanes), allt[g])
+    assert torch.equal(mk.bucket_accum(pts, dig[1, 2:3], nb, lanes), allt[1, 2:3])
+    assert torch.equal(mk.bucket_accum2(pts, dig[2, 1:3], nb, lanes), allt[2, 1:3])
+    assert torch.equal(mk.bucket_accum_k_ref(pts, dig[0], nb, 4, lanes), allt[0])
+    assert torch.equal(mk.bucket_accum_ref(pts, dig[0, :1], nb, lanes), allt[0, :1])
+    assert torch.equal(mk.bucket_accum2_ref(pts, dig[0, 2:], nb, lanes), allt[0, 2:])
+
+
+@pytest.mark.parametrize("fold", [1, 3])
+def test_fold_is_the_first_lane_rounds(case, fold):
+    """fold=f leaves in lanes 0:lanes>>f what the first f rounds of the
+    lane reduction give, so the reduced tables are equal limb for limb."""
+    pts, dig, nb = _group_inputs(case, 4)
+    lanes = 16
+    plain = mk.bucket_accum_all(pts, dig, nb, lanes)
+    folded = mk.bucket_accum_all(pts, dig, nb, lanes, fold=fold)
+    for a, b in zip(tmsm._lane_tables(folded, fold), tmsm._lane_tables(plain)):
+        assert torch.equal(a, b)
+    one = mk.bucket_accum_k(pts, dig[1], nb, 4, lanes, fold=fold)
+    assert torch.equal(one[:, :, : lanes >> fold], folded[1, :, :, : lanes >> fold])
+
+
+def test_group_entries_check_their_inputs():
+    pts = torch.zeros((4, 8, 22), dtype=torch.int32)
+    dig = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"\[1, n\]"):
+        mk.bucket_accum(pts, dig, 5, 32)
+    with pytest.raises(ValueError, match=r"\[2, n\]"):
+        mk.bucket_accum2(pts, dig[:1], 5, 32)
+    with pytest.raises(ValueError, match=r"\[4, n\]"):
+        mk.bucket_accum_k(pts, dig, 5, 4, 32)
+    with pytest.raises(ValueError, match="fold"):
+        mk.bucket_accum_k(pts, dig, 5, 2, 32, fold=6)
+    with pytest.raises(TypeError, match="int32"):
+        mk.bucket_accum2(pts, dig.long(), 5, 32)
+
+
+# --- the dense options ---------------------------------------------------------
+
+
+DENSE_OPTIONS = {
+    "k1": (dict(k=1), "bucket_accum"),
+    "k2": (dict(k=2), "bucket_accum2"),
+    "k4_per_group": (dict(k=4, single_call=False), "bucket_accum_k"),
+    "fold2": (dict(fold=2), "bucket_accum_all"),
+    "xla_combine": (dict(fused_combine=False), "bucket_accum_all"),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_scan_wire(case):
+    """The JAX package's scan-route msm (its XLA path) on the case: the
+    MSM's value does not depend on c, and c = 4 shares its compile with
+    test_engine_msm_matches_jax_msm_and_oracle."""
+    jpts = jed.EdwardsPoint(*(jnp.asarray(c) for c in _coords(case["pts"])))
+    jsum = jmsm.msm(jpts, JScalar.from_int(case["ss"]), c=4, dense=False)
+    return o.ristretto_compress(_ints(_tpt(jsum._tuple()))[0])
+
+
+@pytest.fixture(scope="module")
+def dense_default():
+    """The default k=4 form's bytes, by c (filled by the first test)."""
+    return {}
+
+
+@pytest.mark.parametrize("c", [5, 6])
+@pytest.mark.parametrize("option", list(DENSE_OPTIONS))
+def test_msm_dense_options(case, jax_scan_wire, dense_default, monkeypatch, c,
+                           option):
+    """Every option of _msm_dense (k=1, k=2, per-group k=4, fold=2, the
+    log-depth combine) gives the bytes of the default k=4 form, of the
+    oracle and of the JAX package's scan-route msm, at c = 5 (51 windows:
+    k = 2 and 4 pad the last group) and c = 6, and enters the tables
+    through its own kernel: one call a window, pair or group.  The JAX
+    package's interpreted Pallas _msm_dense is not run here (minutes at
+    16 points on a CPU); its own tests hold its k = 1, 2 and 4 forms equal
+    to one another and to its scan route (tests/test_msm.py)."""
+    kw, entry = DENSE_OPTIONS[option]
+    calls = {name: 0 for name in ("bucket_accum", "bucket_accum2",
+                                  "bucket_accum_k", "bucket_accum_all",
+                                  "combine_tables")}
+
+    def spy(name):
+        real = getattr(mk, name)
+
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            return real(*args, **kwargs)
+        return counted
+
+    for name in calls:
+        monkeypatch.setattr(mk, name, spy(name))
+    nwin = tmsm.nwin_for(c)
+    pts = _tpt(_coords(case["pts"]))
+    win = Scalar.from_int(case["ss"]).windows(c, nwin)
+    got = _wire(tmsm._msm_dense(pts, win, c, nwin, **kw))
+    per_entry = {"bucket_accum": nwin, "bucket_accum2": -(-nwin // 2),
+                 "bucket_accum_k": -(-nwin // 4), "bucket_accum_all": 1}
+    assert calls[entry] == per_entry[entry]
+    assert sum(calls.values()) == calls[entry] + calls["combine_tables"]
+    assert calls["combine_tables"] == (0 if option == "xla_combine" else 1)
+    monkeypatch.undo()
+    if c not in dense_default:
+        dense_default[c] = _wire(tmsm._msm_dense(pts, win, c, nwin))
+    assert got == dense_default[c] == [case["want"]] == [jax_scan_wire]
+
+
+def test_msm_options_route_as_the_jax_package(case):
+    """fused=True and signed=False take the scan route; dense=True with
+    signed=False raises; every route gives the oracle's bytes."""
+    pts = EdwardsPoint(*_tpt(_coords(case["pts"])))
+    s = Scalar.from_int(case["ss"])
+    for kw in (dict(c=5, fused=True), dict(c=4, signed=False),
+               dict(c=4, fused=True, signed=False)):
+        assert not tmsm._use_dense(N, kw["c"], None, kw.get("fused", False),
+                                   kw.get("signed", True))
+        assert _wire(tmsm.msm(pts, s, **kw)._tuple()) == [case["want"]]
+    with pytest.raises(ValueError, match="signed"):
+        tmsm.msm(pts, s, c=4, dense=True, signed=False)
+
+
+def test_segmented_scan_points_matches_jax():
+    rng = np.random.default_rng(73)
+    pts = [o.scalar_mul(o.BASEPOINT, k) for k in _rand_scalars(rng, 9)]
+    starts = np.array([1, 0, 0, 1, 1, 0, 0, 0, 1], np.int32)
+    got = tmsm._segmented_scan_points(_tpt(_coords(pts)), torch.tensor(starts))
+    want = jmsm._segmented_scan_points(tuple(jnp.asarray(c) for c in _coords(pts)),
+                                       jnp.asarray(starts))
+    assert _wire(got) == _wire(_tpt(want))
+    acc = o.IDENTITY
+    for i, p in enumerate(pts):
+        acc = p if starts[i] else o.point_add(acc, p)
+        assert o.point_eq(_ints(got)[i], acc)
+
+
+def test_horner_stride_matches_jax():
+    rng = np.random.default_rng(74)
+    pts = [o.scalar_mul(o.BASEPOINT, k) for k in _rand_scalars(rng, 3)]
+    got = tmsm._horner(_tpt(_coords(pts)), 2, stride=3)
+    want = jmsm._horner(tuple(jnp.asarray(c) for c in _coords(pts)), 2, stride=3)
+    assert _wire(got) == _wire(_tpt(want))
+    total = o.IDENTITY
+    for w, p in enumerate(pts):
+        total = o.point_add(total, o.mul_by_pow_2(p, 6 * w))
+    assert o.point_eq(_ints(tuple(t[None] for t in got))[0], total)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", [0, 2])
+def test_group_entry_kernels_equal_plain(cuda, case, fold):
+    """K9 (with and without the fold's K5 rounds), K11 and K12 on the card
+    against their plain versions, limb for limb."""
+    pts, dig, nb = _group_inputs(case, 6, n=500, ngrp=1)
+    pts, dig, lanes = pts.to(cuda), dig[0].to(cuda), 64
+    got = mk.bucket_accum_k(pts, dig, nb, 4, lanes, fold=fold)
+    assert torch.equal(got, mk.bucket_accum_k_ref(pts, dig, nb, 4, lanes, fold=fold))
+    got = mk.bucket_accum_all(pts, dig[None], nb, lanes, fold=fold)
+    assert torch.equal(got, mk.bucket_accum_all_ref(pts, dig[None], nb, lanes, fold=fold))
+    if fold == 0:
+        assert torch.equal(mk.bucket_accum(pts, dig[:1].contiguous(), nb, lanes),
+                           mk.bucket_accum_ref(pts, dig[:1], nb, lanes))
+        assert torch.equal(mk.bucket_accum2(pts, dig[2:].contiguous(), nb, lanes),
+                           mk.bucket_accum2_ref(pts, dig[2:], nb, lanes))

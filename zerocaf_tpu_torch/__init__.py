@@ -6,18 +6,22 @@ package's tensor boundary (int32 [..., 22] limbs, radix 2^12).  The hot
 paths -- field multiply (K1), power chains (K2), the oblivious ladder (K3,
 and K10, its own entry into the same kernel), the signed windowed multiply
 (K4), batched point addition (K5), the fixed-base comb of key generation
-(K6), and MSM's bucket accumulation (K7) and window combine (K8) -- are
-hand-written CUDA kernels for sm_90a, built from ``csrc/`` at first use;
-on CPU tensors the same algebra runs in plain PyTorch.  This package never
-imports jax.
+(K6), and MSM's bucket accumulation (K7, and K9, K11, K12, its entries
+for one window group) and window combine (K8) -- are hand-written CUDA
+kernels for sm_90a, built from ``csrc/`` at first use; on CPU tensors the
+same algebra runs in plain PyTorch.  ``parallel`` holds the mesh of
+``torch.distributed`` ranks, its collectives, the sharded MSM and
+checkpointing.  This package never imports jax.
 """
 
 from .field import FieldElement
 from .models.edwards import EdwardsPoint
 from .models.ristretto import CompressedRistretto, RistrettoPoint
-from .parallel.msm import msm
+from . import parallel
+from .parallel import msm, msm_sharded
 from .scalar import Scalar
 from .serving import Engine, pad_msm
 
 __all__ = ["CompressedRistretto", "EdwardsPoint", "Engine", "FieldElement",
-           "RistrettoPoint", "Scalar", "msm", "pad_msm"]
+           "RistrettoPoint", "Scalar", "msm", "msm_sharded", "pad_msm",
+           "parallel"]

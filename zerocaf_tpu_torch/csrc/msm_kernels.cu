@@ -1,6 +1,6 @@
-// Hopper kernels of single-device Pippenger MSM: K7 (bucket accumulation
-// for all window groups) and K8 (window combine), with a plain C launcher
-// each (bound with ctypes by zerocaf_tpu_torch/ops/kernels/build.py).
+// Hopper kernels of Pippenger MSM: K7 (bucket accumulation for all window
+// groups; K9, K11 and K12 launch it too) and K8 (window combine), with a
+// plain C launcher each (bound with ctypes by zerocaf_tpu_torch/ops/kernels/build.py).
 // Every launcher enqueues on the stream it is given and returns
 // cudaGetLastError().  The point formulas are those of field.cuh, so each
 // kernel agrees limb for limb with its plain PyTorch version
@@ -56,7 +56,13 @@ __device__ __forceinline__ void pt_identity(Pt& p) {
 
 // K7 -- replaces zerocaf_tpu/ops/pallas/msm_kernels.py:bucket_accum_all
 // (_bucketall_kernel, _accum_one, _init_tables).  Signed-digit Pippenger
-// bucket tables for all window groups in one launch.
+// bucket tables for all window groups in one launch.  The same kernel
+// replaces K9 bucket_accum_k (_bucketk_kernel: ngrp = 1), K11 bucket_accum
+// (_bucket_kernel: ngrp = k = 1) and K12 bucket_accum2 (_bucket2_kernel:
+// ngrp = 1, k = 2): the TPU wrote one program per VMEM-sized output block,
+// the card needs none of those limits.  At ngrp = 1 a launch has only
+// `lanes` threads (4096 at 2^20 points: 32 blocks on 132 SMs), so K11 and
+// K12 leave most of the card idle, as their TPU forms left the grid serial.
 //
 // Thread (g, t), g < ngrp and t < lanes, owns one private table per window
 // h < k of group g and folds the points i == t (mod lanes) into them, in

@@ -291,6 +291,9 @@ class EdwardsPoint:
     def shape(self):
         return tuple(self.X.shape[:-1])
 
+    def __getitem__(self, idx) -> "EdwardsPoint":
+        return EdwardsPoint(self.X[idx], self.Y[idx], self.Z[idx], self.T[idx])
+
     def eq(self, other: "EdwardsPoint") -> torch.Tensor:
         """Projective equality: X1 Z2 == X2 Z1 and Y1 Z2 == Y2 Z1."""
         X1, Y1, Z1, _ = self._tuple()

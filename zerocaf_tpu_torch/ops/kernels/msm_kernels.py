@@ -1,10 +1,27 @@
-"""Hand-written Hopper kernels K7 and K8 of Pippenger MSM and their plain
-PyTorch versions (zerocaf_tpu/ops/pallas/msm_kernels.py counterpart).
+"""Hand-written Hopper kernels of Pippenger MSM and their plain PyTorch
+versions (zerocaf_tpu/ops/pallas/msm_kernels.py counterpart).
 
-  K7 ``bucket_accum_all``  signed-digit bucket tables of every window group,
-                           one private table per lane
-  K8 ``combine_tables``    bucket totals by the descending running sum, then
-                           Horner over the windows -> one point
+  K7  ``bucket_accum_all``  signed-digit bucket tables of every window group,
+                            one private table per lane
+  K8  ``combine_tables``    bucket totals by the descending running sum, then
+                            Horner over the windows -> one point
+  K9  ``bucket_accum_k``    one group of k windows' tables (K7's kernel, one
+                            group)
+  K11 ``bucket_accum``      one window's tables (K7's kernel, k = 1)
+  K12 ``bucket_accum2``     two windows' tables (K7's kernel, k = 2)
+
+The TPU needed a Pallas program for each of K7, K9, K11 and K12 because
+their output blocks had to fit VMEM at 128, 128, 512 and 256 lanes; on the
+card they are one kernel, ``k_bucket_accum``, which takes the group size
+and count as arguments.  Each entry has its own wrapper, launch count and
+plain version, and all use ``dense_lanes(n)`` lanes.
+
+``fold=f`` (K7 and K9; ``_fold_lanes`` on the TPU) runs f rounds of the
+lane tree over the tables in place after the launch: lanes 0:lanes>>f of
+every entry then hold the folded sums.  On the card each round is one K5
+launch; the plain versions run K5's plain version.  The TPU folded inside
+the kernel to avoid a limbs-minor relayout that the card's tables do not
+have.
 
 The CUDA source is ``zerocaf_tpu_torch/csrc/msm_kernels.cu``.  Each wrapper
 checks its tensors and raises on anything else; for CUDA tensors it launches
@@ -20,7 +37,8 @@ import torch
 
 from . import build
 from .field_kernels import (L, _check_limbs, _on_cpu, _padd_ext_block,
-                            _pdbl_block, identity_like)
+                            _pdbl_block, identity_like, padd_tiled,
+                            padd_tiled_ref)
 
 PT = 4 * L                 # int32 of one extended point
 MAX_COMBINE_WINDOWS = 128  # K8 runs one thread per window in one block
@@ -42,7 +60,8 @@ def _launch(name: str, device: torch.device, fn_name: str, *args) -> None:
     build.launch(name, device, "msm_kernels", fn_name, *args)
 
 
-def _check_accum(name: str, pts, dig_g, nb: int, lanes: int) -> None:
+def _check_accum(name: str, pts, dig_g, nb: int, lanes: int,
+                 fold: int = 0) -> None:
     if not isinstance(pts, torch.Tensor) or pts.dim() != 3 or pts.shape[0] != 4:
         raise ValueError(f"{name}: points must be one [4, n, {L}] tensor")
     _check_limbs(name, pts)
@@ -56,6 +75,8 @@ def _check_accum(name: str, pts, dig_g, nb: int, lanes: int) -> None:
         raise ValueError(f"{name}: digits must be contiguous, on {pts.device}")
     if nb < 2 or not 1 <= lanes <= MAX_LANES:
         raise ValueError(f"{name}: unsupported nb {nb} or lanes {lanes}")
+    if fold < 0 or lanes % (1 << fold):
+        raise ValueError(f"{name}: {fold} fold rounds do not divide {lanes} lanes")
 
 
 # ---------------------------------------------------------------------------
@@ -71,10 +92,10 @@ def _identity_tables(shape, device) -> torch.Tensor:
     return tbl
 
 
-def bucket_accum_all_ref(pts, dig_g, nb: int, lanes: int):
-    """Plain version of K7: the same per-lane tables, point chunk by point
-    chunk (lane t takes the points i == t mod lanes, in order of i), every
-    window and lane of a chunk at once."""
+def _accum_ref(pts, dig_g, nb: int, lanes: int):
+    """Plain version of ``k_bucket_accum``: the same per-lane tables, point
+    chunk by point chunk (lane t takes the points i == t mod lanes, in
+    order of i), every window and lane of a chunk at once."""
     ngrp, k, n = dig_g.shape
     nw = ngrp * k
     dig = dig_g.reshape(nw, n)
@@ -97,7 +118,52 @@ def bucket_accum_all_ref(pts, dig_g, nb: int, lanes: int):
     return tbl.reshape(ngrp, k, nb, lanes, 4, L)
 
 
-def bucket_accum_all(pts, dig_g, nb: int, lanes: int):
+def _fold_lanes(tbl, fold: int, add) -> None:
+    """``fold`` rounds of the lane tree over per-lane tables [..., lanes, 4,
+    22], in place: round r adds lanes half:2*half into lanes 0:half (half =
+    lanes >> (r+1)), each round one ``add`` of the halves, read in place.
+    Lanes at and above lanes >> fold keep partial sums nobody reads."""
+    lanes = tbl.shape[-3]
+    arr = tbl.view(-1, lanes, 4, L)
+    for r in range(fold):
+        half = lanes >> (r + 1)
+        out = add(tuple(arr[:, :half, j] for j in range(4)),
+                  tuple(arr[:, half:2 * half, j] for j in range(4)))
+        for j in range(4):
+            arr[:, :half, j] = out[j]
+
+
+def _accum(wrapper, pts, dig_g, nb: int, lanes: int, fold: int):
+    """Check, then launch ``k_bucket_accum`` on dig_g [ngrp, k, n] and fold
+    with K5 (CUDA), or run the plain version (CPU).  Returns [ngrp, k, nb,
+    lanes, 4, 22]."""
+    name = wrapper.__name__
+    _check_accum(name, pts, dig_g, nb, lanes, fold)
+    if _on_cpu(pts):
+        tbl = _accum_ref(pts, dig_g, nb, lanes)
+        _fold_lanes(tbl, fold, padd_tiled_ref)
+        return tbl
+    ngrp, k, n = dig_g.shape
+    if ngrp * lanes >= 1 << 31 or n >= 1 << 31:
+        raise ValueError(f"{name}: too many threads or points")
+    out = torch.empty((ngrp, k, nb, lanes, 4, L), dtype=torch.int32,
+                      device=pts.device)
+    if out.numel():
+        _launch(name, pts.device, "zc_bucket_accum", pts, dig_g, out, n, nb,
+                k, ngrp, lanes)
+        wrapper.launches += 1
+        _fold_lanes(out, fold, padd_tiled)
+    return out
+
+
+def bucket_accum_all_ref(pts, dig_g, nb: int, lanes: int, fold: int = 0):
+    """Plain version of K7 (and of its fold, through K5's plain version)."""
+    tbl = _accum_ref(pts, dig_g, nb, lanes)
+    _fold_lanes(tbl, fold, padd_tiled_ref)
+    return tbl
+
+
+def bucket_accum_all(pts, dig_g, nb: int, lanes: int, fold: int = 0):
     """Per-lane signed-digit bucket tables of all window groups (K7).
 
     pts:   [4, n, 22] int32 stacked extended coordinates;
@@ -105,23 +171,74 @@ def bucket_accum_all(pts, dig_g, nb: int, lanes: int):
            window h at row h; padding windows and points have digit 0).
     Returns [ngrp, k, nb, lanes, 4, 22]: entry b of lane t of window (g, h)
     is the sum of the points i == t (mod lanes) whose digit is +-b, each
-    negated for a negative digit; bucket 0 is the identity."""
-    _check_accum("bucket_accum_all", pts, dig_g, nb, lanes)
-    if _on_cpu(pts):
-        return bucket_accum_all_ref(pts, dig_g, nb, lanes)
-    ngrp, k, n = dig_g.shape
-    if ngrp * lanes >= 1 << 31 or n >= 1 << 31:
-        raise ValueError("bucket_accum_all: too many threads or points")
-    out = torch.empty((ngrp, k, nb, lanes, 4, L), dtype=torch.int32,
-                      device=pts.device)
-    if out.numel():
-        _launch("bucket_accum_all", pts.device, "zc_bucket_accum", pts, dig_g,
-                out, n, nb, k, ngrp, lanes)
-        bucket_accum_all.launches += 1
-    return out
+    negated for a negative digit; bucket 0 is the identity.  fold > 0 then
+    folds the lanes (see the module docstring)."""
+    return _accum(bucket_accum_all, pts, dig_g, nb, lanes, fold)
 
 
 bucket_accum_all.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9, K11, K12: K7's kernel for one window group
+# ---------------------------------------------------------------------------
+
+
+def _one_group(name: str, dig, k: int):
+    """Digits [k, n] of one window group as K7's [1, k, n]."""
+    if not isinstance(dig, torch.Tensor) or dig.dim() != 2 or dig.shape[0] != k:
+        raise ValueError(f"{name}: digits must be one [{k}, n] tensor, got "
+                         f"{getattr(dig, 'shape', type(dig).__name__)}")
+    return dig.unsqueeze(0)
+
+
+def bucket_accum_k_ref(pts, dig, nb: int, k: int, lanes: int, fold: int = 0):
+    """Plain version of K9."""
+    return bucket_accum_all_ref(pts, _one_group("bucket_accum_k", dig, k), nb,
+                                lanes, fold)[0]
+
+
+def bucket_accum_k(pts, dig, nb: int, k: int, lanes: int, fold: int = 0):
+    """One group of k windows' per-lane tables (K9): dig [k, n] signed
+    digits -> [k, nb, lanes, 4, 22], as one group of ``bucket_accum_all``;
+    fold as there."""
+    return _accum(bucket_accum_k, pts, _one_group("bucket_accum_k", dig, k),
+                  nb, lanes, fold)[0]
+
+
+bucket_accum_k.launches = 0
+
+
+def bucket_accum_ref(pts, dig, nb: int, lanes: int):
+    """Plain version of K11."""
+    return bucket_accum_all_ref(pts, _one_group("bucket_accum", dig, 1), nb,
+                                lanes)[0]
+
+
+def bucket_accum(pts, dig, nb: int, lanes: int):
+    """One window's per-lane tables (K11): dig [1, n] -> [1, nb, lanes, 4,
+    22]."""
+    return _accum(bucket_accum, pts, _one_group("bucket_accum", dig, 1), nb,
+                  lanes, 0)[0]
+
+
+bucket_accum.launches = 0
+
+
+def bucket_accum2_ref(pts, dig, nb: int, lanes: int):
+    """Plain version of K12."""
+    return bucket_accum_all_ref(pts, _one_group("bucket_accum2", dig, 2), nb,
+                                lanes)[0]
+
+
+def bucket_accum2(pts, dig, nb: int, lanes: int):
+    """Two windows' per-lane tables (K12): dig [2, n] -> [2, nb, lanes, 4,
+    22]."""
+    return _accum(bucket_accum2, pts, _one_group("bucket_accum2", dig, 2), nb,
+                  lanes, 0)[0]
+
+
+bucket_accum2.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -170,8 +287,9 @@ combine_tables.launches = 0
 
 
 def kernel_wrappers():
-    """The two wrappers, in kernel order K7, K8."""
-    return (bucket_accum_all, combine_tables)
+    """The five wrappers, in kernel order K7, K8, K9, K11, K12."""
+    return (bucket_accum_all, combine_tables, bucket_accum_k, bucket_accum,
+            bucket_accum2)
 
 
 def reset_launch_counts() -> None:

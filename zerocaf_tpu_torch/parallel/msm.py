@@ -1,5 +1,5 @@
-"""Multi-scalar multiplication on one device (zerocaf_tpu/parallel/msm.py
-counterpart, single-device part): sum(k_i * P_i) by signed-digit Pippenger.
+"""Multi-scalar multiplication (zerocaf_tpu/parallel/msm.py counterpart):
+sum(k_i * P_i) by Pippenger, on one device or sharded over a mesh of ranks.
 
 Two routes compute the same sum:
 
@@ -7,18 +7,29 @@ Two routes compute the same sum:
     digits; K7 folds every point into per-lane bucket tables of all windows
     at once (no sort, no gather of points), the lanes are summed by K5
     (``_lane_reduce``), and K8 turns the bucket tables into one point
-    (running sums, then Horner).  On CPU tensors the kernels' plain
-    versions run.
+    (running sums, then Horner).  ``_msm_dense``'s options reach the other
+    entries of K7's kernel: one window group a launch (K9,
+    ``single_call=False``), one window (K11, ``k=1``) or a pair (K12,
+    ``k=2``).  On CPU tensors the kernels' plain versions run.
   * scan (``dense=False``): per window, points are sorted by digit and each
     digit's segment is summed by a work-efficient segmented scan, then a
-    log-depth bucket combine and Horner.  This is the cross-check.
+    log-depth bucket combine and Horner.  Signed digits by default,
+    unsigned windows (2^c buckets) with ``signed=False``.
+
+``msm_sharded`` runs either route on each rank's block of the batch and
+sums the ranks' partial points with ``all_gather`` and a tree reduction
+(``shard_combine`` instead splits the window combine across the ranks).
+The ranks are processes of ``torch.distributed`` (``parallel/mesh.py``).
 
 Every batched addition here is one K5 call on the card, at any width: the
 JAX package's ``_padd`` kept narrow additions off its kernel because of
-the kernel's 1024-lane Pallas blocks, which K5 does not have.
+the kernel's 1024-lane Pallas blocks, which K5 does not have.  For the same
+reason the JAX package's ``pallas_rounds`` (how many lane-reduce rounds may
+use its kernel) is not ported: here every round is K5.
 
-EC arithmetic is exact integer math, so the two routes (and any reduction
-order) give the same point; they are compared by canonical encodings.
+EC arithmetic is exact integer math, so the routes (and any reduction
+order, any number of ranks) give the same point; they are compared by
+canonical encodings.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from ..models.edwards import EdwardsPoint
 from ..ops.kernels import field_kernels as _fk
 from ..ops.kernels import msm_kernels as _mk
 from ..scalar import Scalar
+from .comm import Communicator
 
 # Window-group size of K7: k windows' tables per thread.  It sets how often
 # the points are re-read (once per group) against the threads' table memory;
@@ -159,15 +171,35 @@ def _seg_exclusive_scan(pts, starts):
     return tuple(c[:n0] for c in v)
 
 
-def _window_buckets_signed(pt, mag, sign, nbuckets: int):
-    """One Pippenger window of signed digits: sort by magnitude, negate
-    the points of negative digits, segmented exclusive scan, then scatter
-    both the exclusive prefix and the point at each segment end and add the
-    two [nbuckets]-wide tables: bucket[d] = that segment's sum."""
-    order = torch.argsort(mag, stable=True)
-    d_sorted = mag[order]
+def _segmented_scan_points(pts, starts):
+    """Inclusive segmented sum-scan with the EC addition monoid
+    (Hillis-Steele: ceil(log2 N) rounds of one batched addition).  pts:
+    point tuple of [N, 22]; starts: [N] int32 segment-start flags.  Each
+    segment's last element ends up holding the segment's sum."""
+    n = starts.shape[0]
+    ident = _ed._identity_like(tuple(c[:1] for c in pts))
+    f = starts
+    for d in range(max(1, (n - 1).bit_length())):
+        dist = min(1 << d, n)
+        p_l = tuple(torch.cat([ic.expand(dist, c.shape[-1]), c[:n - dist]])
+                    for c, ic in zip(pts, ident))
+        f_l = torch.cat([f.new_zeros(dist), f[:n - dist]])
+        pts = _ed._select(f.bool(), pts, _fk.padd_tiled(p_l, pts))
+        f = f | f_l
+    return pts
+
+
+def _bucket_table(pt, digits, nbuckets: int, sign=None):
+    """One Pippenger window: sort by digit, segmented exclusive scan, then
+    scatter both the exclusive prefix and the point at each segment end
+    and add the two [nbuckets]-wide tables: bucket[d] = that segment's sum.
+    sign (optional [N] bool) negates the points of negative digits
+    (signed digits: ``digits`` are then magnitudes)."""
+    order = torch.argsort(digits, stable=True)
+    d_sorted = digits[order]
     p_sorted = tuple(coord[order] for coord in pt)
-    p_sorted = _ed._select(sign[order], _ed._neg(p_sorted), p_sorted)
+    if sign is not None:
+        p_sorted = _ed._select(sign[order], _ed._neg(p_sorted), p_sorted)
     change = d_sorted[1:] != d_sorted[:-1]
     starts = torch.cat([change.new_ones(1), change]).to(torch.int32)
     excl = _seg_exclusive_scan(p_sorted, starts)
@@ -187,6 +219,16 @@ def _window_buckets_signed(pt, mag, sign, nbuckets: int):
         return tuple(out)
 
     return _fk.padd_tiled(scatter(excl), scatter(p_sorted))
+
+
+def _window_buckets(pt, digits, nbuckets: int):
+    """One window of unsigned digits in [0, nbuckets)."""
+    return _bucket_table(pt, digits, nbuckets)
+
+
+def _window_buckets_signed(pt, mag, sign, nbuckets: int):
+    """One window of signed digits, as magnitudes and signs."""
+    return _bucket_table(pt, mag, nbuckets, sign=sign)
 
 
 def _ident_fill(like, rows):
@@ -226,13 +268,15 @@ def _bucket_totals(tables, nbuckets: int):
     return tuple(t[:, 0] for t in S)
 
 
-def _horner(tot, c: int):
-    """sum_w 2^(c w) tot_w over the leading window axis, MSB first: c
-    doublings (T only on the last) and one addition per window."""
+def _horner(tot, c: int, stride: int = 1):
+    """sum_w 2^(c stride w) tot_w over the leading window axis, MSB first:
+    c * stride doublings (T only on the last) and one addition per
+    window."""
     T = _ed._identity_like(tuple(t[0] for t in tot))
+    steps = c * stride
     for w in reversed(range(tot[0].shape[0])):
-        for i in range(c):
-            T = _ed._double(T, with_t=(i == c - 1))
+        for i in range(steps):
+            T = _ed._double(T, with_t=(i == steps - 1))
         T = _ed._add(T, tuple(t[w] for t in tot))
     return T
 
@@ -240,6 +284,28 @@ def _horner(tot, c: int):
 def _combine_windows(tables, c: int, nbuckets: int):
     """Bucket combine + Horner merge.  tables: tuple of [nwin, nbuckets, 22]."""
     return _horner(_bucket_totals(tables, nbuckets), c)
+
+
+def _msm_local_tables(pt, windows, c: int, nwin: int, signed: bool):
+    """Scan-route bucket tables of one shard: windows [N, nwin] unsigned
+    c-bit digits (recoded to signed digits when signed) -> tuple of
+    [nwin, nb, 22], nb = 2^(c-1) + 1 signed, 2^c unsigned."""
+    if signed:
+        mag, sgn = signed_digits(windows, c)
+        nb = (1 << (c - 1)) + 1
+        per_w = [_window_buckets_signed(pt, mag[:, w], sgn[:, w], nb)
+                 for w in range(nwin)]
+    else:
+        per_w = [_window_buckets(pt, windows[:, w], 1 << c)
+                 for w in range(nwin)]
+    return tuple(torch.stack([pw[i] for pw in per_w]) for i in range(4))
+
+
+def _msm_local(pt, windows, c: int, nwin: int, signed: bool = True):
+    """Scan-route Pippenger over one shard -> one point (tuple of [22])."""
+    nb = (1 << (c - 1)) + 1 if signed else 1 << c
+    return _combine_windows(_msm_local_tables(pt, windows, c, nwin, signed),
+                            c, nb)
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +325,16 @@ def _lane_reduce(v):
     return tuple(cv[:, 0] for cv in v)
 
 
+def _lane_tables(tbl, fold: int = 0):
+    """Per-lane tables [..., nb, lanes, 4, 22] whose lanes were folded
+    ``fold`` times -> the bucket sums, a tuple of [W, nb, 22] (W the
+    windows in tbl).  Lanes at and above lanes >> fold are not read."""
+    nb, lanes = tbl.shape[-4], tbl.shape[-3]
+    arr = tbl.view(-1, lanes, 4, tbl.shape[-1])[:, : lanes >> fold]
+    red = _lane_reduce(tuple(arr[:, :, j] for j in range(4)))
+    return tuple(cv.view(-1, nb, cv.shape[-1]) for cv in red)
+
+
 def dense_table_bytes(n: int, c: int) -> int:
     """Bytes of K7's per-lane tables for n points at window width c."""
     ngrp = -(-nwin_for(c) // DENSE_K)
@@ -266,47 +342,101 @@ def dense_table_bytes(n: int, c: int) -> int:
     return ngrp * DENSE_K * nb * _mk.dense_lanes(n) * _mk.PT * 4
 
 
-def dense_digits(windows, c: int, nwin: int):
-    """K7's digits: the signed digits of windows [N, nwin] as
-    [ngrp, DENSE_K, N] int32, the windows past nwin (filling the last
-    group) all 0."""
+def dense_digits(windows, c: int, nwin: int, k: int = DENSE_K):
+    """The dense kernels' digits: the signed digits of windows [N, nwin] as
+    [ngrp, k, N] int32, the windows past nwin (filling the last group)
+    all 0."""
     mag, sgn = signed_digits(windows, c)
     n = mag.shape[0]
-    ngrp = -(-nwin // DENSE_K)
-    dig = torch.zeros((ngrp * DENSE_K, n), dtype=torch.int32, device=mag.device)
+    ngrp = -(-nwin // k)
+    dig = torch.zeros((ngrp * k, n), dtype=torch.int32, device=mag.device)
     dig[:nwin] = torch.where(sgn, -mag, mag).t()
-    return dig.view(ngrp, DENSE_K, n)
+    return dig.view(ngrp, k, n)
 
 
-def _msm_dense_tables_all(pt, windows, c: int, nwin: int):
+def _tables_by_group(pt, windows, c: int, nwin: int, k: int, accum,
+                     fold: int = 0):
+    """Bucket tables one group of k windows at a time: accum(pts, digits
+    [k, N], nb, lanes) launches the group's per-lane tables (the windows
+    past nwin all zero), whose lane reduction follows.  Returns a tuple of
+    [nwin, nb, 22]."""
+    nb = (1 << (c - 1)) + 1
+    dig = dense_digits(windows, c, nwin, k)
+    pts, lanes = torch.stack(pt), _mk.dense_lanes(dig.shape[-1])
+    per_g = [_lane_tables(accum(pts, d, nb, lanes), fold) for d in dig]
+    return tuple(torch.cat([pg[i] for pg in per_g])[:nwin] for i in range(4))
+
+
+def _msm_dense_tables(pt, windows, c: int, nwin: int):
+    """Bucket tables window by window: K11 once per window."""
+    return _tables_by_group(pt, windows, c, nwin, 1, _mk.bucket_accum)
+
+
+def _msm_dense_tables_paired(pt, windows, c: int, nwin: int):
+    """Bucket tables pair by pair: K12 once per window pair (an odd nwin
+    pads with a zero-digit window, whose all-identity table is dropped)."""
+    return _tables_by_group(pt, windows, c, nwin, 2, _mk.bucket_accum2)
+
+
+def _msm_dense_tables_k(pt, windows, c: int, nwin: int, k: int = DENSE_K,
+                        fold: int = 0):
+    """Bucket tables group by group: K9 once per group of k windows, with
+    ``fold`` lane rounds after each launch."""
+    def accum(pts, d, nb, lanes):
+        return _mk.bucket_accum_k(pts, d, nb, k, lanes, fold)
+    return _tables_by_group(pt, windows, c, nwin, k, accum, fold)
+
+
+def _msm_dense_tables_all(pt, windows, c: int, nwin: int, k: int = DENSE_K,
+                          fold: int = 0):
     """Bucket tables of every window: K7 over all window groups in one
-    launch, then the lane reduction.  Returns a tuple of [nwin, nb, 22]."""
+    launch, ``fold`` lane rounds, then the rest of the lane reduction over
+    all windows at once.  Returns a tuple of [nwin, nb, 22]."""
     nb = (1 << (c - 1)) + 1
-    dig = dense_digits(windows, c, nwin)
+    dig = dense_digits(windows, c, nwin, k)
     lanes = _mk.dense_lanes(dig.shape[-1])
-    tbl = _mk.bucket_accum_all(torch.stack(pt), dig, nb, lanes)
-    arr = tbl.view(-1, lanes, 4, tbl.shape[-1])
-    red = _lane_reduce(tuple(arr[:, :, j] for j in range(4)))
-    return tuple(cv.reshape(-1, nb, cv.shape[-1])[:nwin] for cv in red)
+    tbl = _mk.bucket_accum_all(torch.stack(pt), dig, nb, lanes, fold)
+    return tuple(t[:nwin] for t in _lane_tables(tbl, fold))
 
 
-def _msm_dense(pt, windows, c: int, nwin: int):
-    """Dense MSM body: K7 bucket tables, lane reduction, K8 combine."""
+def _msm_dense(pt, windows, c: int, nwin: int, k: int = DENSE_K,
+               fold: int = 0, fused_combine: bool = True,
+               single_call: bool = True):
+    """Dense MSM body: bucket tables, then the window combine.  k >= 3
+    takes groups of k windows, all groups in one K7 launch
+    (single_call, the default) or one K9 launch a group; k = 2 one K12
+    launch a window pair; k = 1 one K11 launch a window.  fold (k >= 3
+    only) folds the lanes after each launch.  fused_combine runs K8,
+    otherwise the log-depth ``_combine_windows``."""
     nb = (1 << (c - 1)) + 1
-    return _mk.combine_tables(_msm_dense_tables_all(pt, windows, c, nwin),
-                              nb, nwin, c)
+    if k >= 3 and single_call:
+        tables = _msm_dense_tables_all(pt, windows, c, nwin, k, fold)
+    elif k >= 3:
+        tables = _msm_dense_tables_k(pt, windows, c, nwin, k, fold)
+    elif k == 2:
+        tables = _msm_dense_tables_paired(pt, windows, c, nwin)
+    else:
+        tables = _msm_dense_tables(pt, windows, c, nwin)
+    if fused_combine:
+        return _mk.combine_tables(tables, nb, nwin, c)
+    return _combine_windows(tables, c, nb)
 
 
-def _use_dense(n: int, c, dense: bool | None) -> bool:
-    """Route to the dense kernels?  They take at most MAX_COMBINE_WINDOWS
-    windows (K8 runs one thread per window) and bucket tables of at most
-    MAX_TABLE_BYTES.  An explicit dense=True outside those bounds raises;
-    dense=None picks the dense route where it fits."""
+def _use_dense(n: int, c, dense: bool | None, fused: bool = False,
+               signed: bool = True) -> bool:
+    """Route to the dense kernels?  They take signed digits only, at most
+    MAX_COMBINE_WINDOWS windows (K8 runs one thread per window) and bucket
+    tables of at most MAX_TABLE_BYTES.  An explicit dense=True outside
+    those bounds, or unsigned, raises; dense=None picks the dense route
+    where it fits, unless fused or unsigned asks for the scan route."""
     cd = c if c is not None else auto_c_dense(n)
     fits = (2 <= cd and nwin_for(cd) <= _mk.MAX_COMBINE_WINDOWS
             and dense_table_bytes(n, cd) <= MAX_TABLE_BYTES)
     if dense is None:
-        return fits
+        return fits and signed and not fused
+    if dense and not signed:
+        raise ValueError("msm(dense=True) always uses signed digits; "
+                         "signed=False is not supported on the dense path")
     if dense and not fits:
         raise ValueError(
             f"msm(dense=True) at c={cd} needs {dense_table_bytes(n, cd)} bytes "
@@ -316,16 +446,20 @@ def _use_dense(n: int, c, dense: bool | None) -> bool:
 
 
 def msm(points: EdwardsPoint, scalars: Scalar, c: int | None = None,
+        fused: bool = False, signed: bool = True,
         dense: bool | None = None) -> EdwardsPoint:
-    """Single-device MSM: sum(k_i * P_i) over the batch axis, with signed
-    digits (2^(c-1) + 1 buckets a window).
+    """Single-device MSM: sum(k_i * P_i) over the batch axis.
 
     The default is the dense route at width auto_c_dense(n) (K7, K5, K8 on
-    the card).  dense=False, or a c whose tables do not fit, takes the scan
-    route at width auto_c(n) unless c is given."""
+    the card), with signed digits (2^(c-1) + 1 buckets a window).
+    dense=False, a c whose tables do not fit, fused=True or signed=False
+    takes the scan route at width auto_c(n) unless c is given; unsigned
+    windows have 2^c buckets.  fused=True is the JAX package's one-graph
+    form (``_msm_local``, what its shard_map traces); PyTorch runs eagerly,
+    so both scan forms are the same calls here."""
     pt = points._tuple()
     n = pt[0].shape[0]
-    if _use_dense(n, c, dense):
+    if _use_dense(n, c, dense, fused, signed):
         cd = c if c is not None else auto_c_dense(n)
         nwin = nwin_for(cd)
         windows = scalars.windows(cd, nwin)
@@ -333,12 +467,89 @@ def msm(points: EdwardsPoint, scalars: Scalar, c: int | None = None,
     if c is None:
         c = auto_c(n)
     nwin = nwin_for(c)
-    mag, sgn = signed_digits(scalars.windows(c, nwin), c)
-    nbuckets = (1 << (c - 1)) + 1
-    per_w = [_window_buckets_signed(pt, mag[:, w], sgn[:, w], nbuckets)
-             for w in range(nwin)]
-    tables = tuple(torch.stack([pw[i] for pw in per_w]) for i in range(4))
-    return EdwardsPoint(*_combine_windows(tables, c, nbuckets))
+    return EdwardsPoint(*_msm_local(pt, scalars.windows(c, nwin), c, nwin,
+                                    signed))
+
+
+# ---------------------------------------------------------------------------
+# Sharded MSM
+# ---------------------------------------------------------------------------
+
+
+def _sharded_combine(tables, c: int, nbuckets: int, comm: Communicator,
+                     ndev: int):
+    """Window-sharded bucket combine: the ranks all_gather their bucket
+    tables (nwin * nb * 352 bytes each), sum them per window, and rank d
+    combines only the windows w == d (mod ndev):
+
+        total = sum_d 2^(c d) * Horner_{stride=ndev}(tot_{d::ndev})
+
+    A window count not divisible by ndev pads with all-identity tables,
+    whose totals are the identity.  Returns this rank's weighted partial
+    (a tuple of [22]); the caller gathers and tree-reduces them.  Rank d's
+    weight 2^(c d) is c * d doublings here: the JAX package ran a fixed
+    doubling chain because shard_map traces one program for every rank."""
+    nwin = tables[0].shape[0]
+    k = -(-nwin // ndev)
+    pad = k * ndev - nwin
+    if pad:
+        fill = _ed._identity_like(tuple(
+            t.new_empty((pad,) + t.shape[1:]) for t in tables))
+        tables = tuple(torch.cat([t, f]) for t, f in zip(tables, fill))
+    g = comm.all_gather_points(tables)           # [ndev, k * ndev, nb, 22]
+    my = comm.axis_index()
+    loc = _tree_reduce(tuple(t[:, my::ndev] for t in g))        # [k, nb, 22]
+    out = _horner(_bucket_totals(loc, nbuckets), c, stride=ndev)
+    for _ in range(c * my):
+        out = _ed._double(out)
+    return out
+
+
+def msm_sharded(points: EdwardsPoint, scalars: Scalar, mesh,
+                c: int | None = None, axis: str = "data",
+                signed: bool = True, dense: bool = False,
+                shard_combine: bool = False) -> EdwardsPoint:
+    """Mesh-sharded MSM, SPMD: every rank of ``mesh`` passes its own block
+    of the batch (``batch_sharding``) and gets the total of all blocks
+    back.  The blocks must be of one size.  Each rank computes one partial
+    point, and the partials are all_gathered and tree-reduced (one point,
+    352 bytes, a rank).
+
+    c=None picks the width from the global N, as the JAX package does.
+    dense=True runs each rank's Pippenger on the dense kernels: with
+    shard_combine, K9 once per window group and the window-sharded
+    combine (the JAX package's pod configuration); without it, K7 and K8
+    as ``msm``.  shard_combine on the scan route shares the combine the
+    same way.  dense=True needs signed=True."""
+    if dense and not signed:
+        raise ValueError("msm_sharded(dense=True) requires signed=True")
+    if points.X.device != mesh.device:
+        raise ValueError(f"msm_sharded: points on {points.X.device}, this "
+                         f"rank's mesh device is {mesh.device}")
+    comm = Communicator(mesh, axis)
+    ndev = comm.axis_size()
+    n = points.shape[0]
+    sizes = comm.all_gather(torch.tensor([n], device=mesh.device))
+    if bool((sizes != n).any()):
+        raise ValueError(f"msm_sharded: the ranks' blocks differ in size: "
+                         f"{sizes.flatten().tolist()}")
+    if c is None:
+        c = (auto_c_dense if dense else auto_c)(n * ndev)
+    nwin = nwin_for(c)
+    nbuckets = (1 << (c - 1)) + 1 if signed else 1 << c
+    windows = scalars.windows(c, nwin)
+    pt = points._tuple()
+    if dense and shard_combine:
+        partial = _sharded_combine(_msm_dense_tables_k(pt, windows, c, nwin),
+                                   c, nbuckets, comm, ndev)
+    elif dense:
+        partial = _msm_dense(pt, windows, c, nwin)
+    elif shard_combine:
+        tables = _msm_local_tables(pt, windows, c, nwin, signed)
+        partial = _sharded_combine(tables, c, nbuckets, comm, ndev)
+    else:
+        partial = _msm_local(pt, windows, c, nwin, signed)
+    return EdwardsPoint(*_tree_reduce(comm.all_gather_points(partial)))
 
 
 def msm_naive(points: EdwardsPoint, scalars: Scalar) -> EdwardsPoint:

@@ -58,6 +58,9 @@ class Scalar:
     def shape(self) -> tuple[int, ...]:
         return tuple(self.limbs.shape[:-1])
 
+    def __getitem__(self, idx) -> "Scalar":
+        return Scalar(self.limbs[idx])
+
     # -- observation --------------------------------------------------------
     def canonical(self) -> "Scalar":
         return Scalar(_l.canonical(self.limbs, _S))
