@@ -7,7 +7,10 @@ path and its sharded MSM path once on one CUDA card.
 Phases, in order (any failure raises, so the exit code is non-zero):
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: compile (or load) the kernel libraries from zerocaf_tpu_torch/csrc,
-     one nvcc process per source, all at once;
+     one nvcc process per source, all at once; ptxas' registers and spills;
+     the 32 x 32 -> 64-bit products (IMAD.WIDE.U32) in the SASS of
+     k_bucket_accum (cuobjdump), beside the count the core's design gives
+     its loop;
   3. kernels: K1-K4 against their plain PyTorch versions at the main path's
      shapes, limb for limb, with CUDA-event times of both;
   4. vectors: the 16 Ristretto small multiples, the Elligator sage vector
@@ -21,21 +24,25 @@ Phases, in order (any failure raises, so the exit code is non-zero):
   8. rates: dh and hash_to_group ops/s (median of 11 calls on the host
      clock, with the min and max) and ladder mults/s;
   9. K5 against its plain version at 2^16 lanes;
- 10. K7 and K8 against their plain versions at 2^14 points, c = 6, k = 4;
+ 10. K7's prep kernel (to_field32), K7 and K8 against their plain versions
+     at 2^14 points, c = 6, k = 4;
  11. Engine.msm at batch 2^20, c = 6, the MSM main path: points k'_i B
      made by the ladder (K3) and encoded, seeded canonical scalars; the
      aggregate equals the oracle's; an invalid lane makes ok false; pad_msm
-     of 2^20 - 3 lanes equals the MSM of those lanes.  K5, K7 and K8 must
-     each have launched during these three calls (counts reset just before
-     them and read just after);
+     of 2^20 - 3 lanes equals the MSM of those lanes.  K5, K7, its prep
+     and K8 must each have launched during these three calls (counts reset
+     just before them and read just after);
  12. at 2^14 points the scan route (dense=False) and the dense route give
      the same bytes, equal to the oracle's (launches printed apart);
- 13. at the shapes of the 2^20 path: K7, and K5 on the first round of the
-     lane reduction, against their plain versions, with K8's time;
+ 13. at the shapes of the 2^20 path: the prep, K7, and K5 on the first
+     round of the lane reduction, against their plain versions, with K8's
+     time;
  14. rates: Engine.msm points/s at 2^20 for c = 5, 6 and 7 (median of 5
      calls on the host clock, with the min and max);
  15. one Engine.msm call at 2^20 under torch.profiler: device busy share
-     and the kernels that take the most device time;
+     and the kernels that take the most device time; then one more call
+     with torch.cat and torch.stack wrapped, naming the callers of the
+     copies;
  16. comb table: the signed width-14 table loaded from the cache or built
      from the oracle (seconds printed), uploaded in both layouts;
  17. K6 against its plain version at 32768 lanes: signed width 14 on the
@@ -52,8 +59,10 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      one Engine.keygen call under torch.profiler;
  21. K9 (one group of 4 windows, fold 0 and 2), K11 (one window) and K12
      (a window pair) against their plain versions at 2^12 points, c = 6,
-     then at the shapes of the 2^20 path with their times and bounds; K7
-     with fold 2 checked at 2^12 and timed at 2^20;
+     then at the shapes of the 2^20 path with their times and bounds, K11
+     at its wrapper's lanes (wide_lanes) and K12 at dense_lanes, with the
+     time of the kernel and its lane reduction at one wave, two waves and
+     dense_lanes lanes; K7 with fold 2 checked at 2^12 and timed at 2^20;
  22. _msm_dense at 2^20 points, c = 6, with k = 1, k = 2, k = 4 and
      single_call=False, fold = 2, and fused_combine=False: each equals the
      oracle's aggregate, with its time and its own launch counts (the k = 1
@@ -68,9 +77,11 @@ Phases, in order (any failure raises, so the exit code is non-zero):
  25. msm_with_checkpoints at 2^16 points in 4 blocks, and the same job
      resumed from its file after block 2, equal to the one-shot MSM.
 The line before the last is a JSON object with one entry per kernel, with
-its bound (the larger of its bytes over the memory rate and its integer
-multiply-adds over the card's multiply-add rate); the last line is
-{"ok": true, "device": {...}}.  Needs a CUDA device: there is no CPU path.
+its bound (the larger of its bytes over the memory rate and its field
+multiplies and squares, priced at the 8 x 32 core's word products, over
+the card's integer multiply rate; bound_ms_22x12 prices them at the 22 x 12
+algebra's multiply-adds); the last line is {"ok": true, "device": {...}}.
+Needs a CUDA device: there is no CPU path.
 """
 
 from __future__ import annotations
@@ -100,24 +111,32 @@ CKPT_BATCH = 1 << 16          # msm_with_checkpoints: 4 blocks of 2^14
 SEED = 20261016
 ECDH_KERNELS = ("mul_tiled", "pow_tiled", "scalar_mul_windowed_stepped",
                 "scalar_mul_windowed_signed")
-MSM_KERNELS = ("padd_tiled", "bucket_accum_all", "combine_tables")
+MSM_KERNELS = ("padd_tiled", "to_field32", "bucket_accum_all", "combine_tables")
 KEYGEN_KERNELS = ("mul_tiled", "pow_tiled", "fixed_base_mul_stepped")
 SOURCE = "zerocaf_tpu_torch/csrc/field_kernels.cu"
 MSM_SOURCE = "zerocaf_tpu_torch/csrc/msm_kernels.cu"
 TPU_KERNELS = "zerocaf_tpu/ops/pallas/field_kernels.py"
 TPU_MSM_KERNELS = "zerocaf_tpu/ops/pallas/msm_kernels.py"
 
-# Work model of the bounds.  Integer multiply-adds of one field multiply:
-# the 22 x 22 schoolbook plus the three folds (12 x (23 + 14 + 5)); of one
-# square: 22 + 231 products plus the folds.  Point operations in multiplies
-# and squares as in csrc/field.cuh.
-IMAD_MUL = 22 * 22 + 12 * (23 + 14 + 5)
-IMAD_SQ = 22 + 231 + 12 * (23 + 14 + 5)
-IMAD_PADD = 10 * IMAD_MUL                       # padd_ext
-IMAD_MADD = 8 * IMAD_MUL                        # madd
-IMAD_MADD7 = 7 * IMAD_MUL                       # madd_affine (the comb)
-IMAD_PDBL_T = 4 * IMAD_SQ + 4 * IMAD_MUL        # pdbl with T
-IMAD_PDBL = 4 * IMAD_SQ + 3 * IMAD_MUL          # pdbl without T
+# Work model of the bounds: field multiplies and squares, as a pair
+# (multiplies, squares); point operations as in csrc/field.cuh.
+MUL = np.array([1, 0])
+SQ = np.array([0, 1])
+PADD = 10 * MUL                                 # padd_ext
+MADD = 8 * MUL                                  # madd
+MADD7 = 7 * MUL                                 # madd_affine (the comb)
+PDBL_T = 4 * SQ + 4 * MUL                       # pdbl with T
+PDBL = 4 * SQ + 3 * MUL                         # pdbl without T
+# Integer multiplies of one field multiply and square, on two bases.  The
+# 22 x 12 algebra of field.cuh: the 22 x 22 schoolbook plus the three
+# folds (12 x (23 + 14 + 5)), and 22 + 231 products plus the folds.  The 8
+# x 32 core of field32.cuh, the least work a field multiply needs on this
+# card: 64 word products and 8 reduction steps of 5 (m = t0 (-p^-1) and
+# m times p's four nonzero low words), and for the square 28 cross
+# products, 8 squares and the same reduction.  Only products count: the
+# adds and carries ride in the multiply-adds.
+OPS_8X32 = (8 * 8 + 8 * 5, 28 + 8 + 8 * 5)
+OPS_22X12 = (22 * 22 + 12 * (23 + 14 + 5), 22 + 231 + 12 * (23 + 14 + 5))
 PT_BYTES = 4 * 22 * 4                           # one extended point
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 IMAD_PER_SM_CLOCK = 64    # 32-bit integer multiply-add, compute capability 9.0
@@ -190,17 +209,42 @@ def call_ms(fn, reps: int) -> list[float]:
 
 class Roofline:
     """The least time the card could take for some work: the larger of its
-    bytes over the memory rate and its integer multiply-adds over the
-    card's rate (SMs x 64 a clock x the maximum SM clock)."""
+    bytes over the memory rate and its integer multiply instructions over
+    the card's rate (SMs x 64 a clock x the maximum SM clock).  Work is a
+    pair (field multiplies, squares), priced at the 8 x 32 core's word
+    products for ``bound_ms`` and at the 22 x 12 algebra's multiply-adds
+    for ``bound_ms_22x12``."""
 
     def __init__(self, sms: int, max_sm_mhz: float):
         self.imad_per_s = sms * IMAD_PER_SM_CLOCK * max_sm_mhz * 1e6
 
-    def __call__(self, imads: float, nbytes: float) -> dict:
-        ops_ms = imads / self.imad_per_s * 1e3
+    def __call__(self, work, nbytes: float) -> dict:
+        muls, sqs = (float(x) for x in work)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        return {"bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+        def ops_ms(per):
+            return (muls * per[0] + sqs * per[1]) / self.imad_per_s * 1e3
+
+        ops = ops_ms(OPS_8X32)
+        return {"bound_ms": max(ops, bytes_ms),
+                "bound_by": "operations" if ops >= bytes_ms else "bytes",
+                "bound_ms_22x12": max(ops_ms(OPS_22X12), bytes_ms)}
+
+
+def sass_wide_products(lib_path, kernel: str) -> int:
+    """The IMAD.WIDE.U32 instructions (32 x 32 -> 64-bit products, with or
+    without carry-in) in the SASS of ``kernel`` in the built library
+    (cuobjdump -sass)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    bodies = [f for f in sass.split("Function : ")[1:]
+              if f.split(None, 1)[0].find(kernel) >= 0]
+    if len(bodies) != 1:
+        raise AssertionError(f"{kernel} not found once in the SASS of {lib_path}")
+    return bodies[0].count("IMAD.WIDE.U32")
 
 
 def max_abs_err(got, want) -> int:
@@ -252,6 +296,13 @@ def main() -> None:
         if any(k in line for k in ("Compiling entry", "registers",
                                    "spill stores", "bytes stack frame")):
             phase("ptxas", line.strip())
+    wide = sass_wide_products(paths["msm_kernels"], "k_bucket_accum")
+    phase("sass", f"k_bucket_accum: {wide} IMAD.WIDE.U32 (its loop's 10 field "
+          f"multiplies take 10 x 96 = 960 by design; the rest convert to limbs "
+          f"and address)")
+    phase("bound basis", f"a field multiply {OPS_8X32[0]} and a square "
+          f"{OPS_8X32[1]} word products on the 8 x 32 core (22 x 12 algebra: "
+          f"{OPS_22X12[0]} and {OPS_22X12[1]} multiply-adds)")
 
     def rand_bytes(shape):
         return torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
@@ -265,7 +316,7 @@ def main() -> None:
     def record(wrapper, err, ms=None, plain_ms=None, bound=None):
         r = results.setdefault(wrapper.__name__, {
             "max_abs_err": 0, "ms": None, "plain_ms": None, "bound_ms": None,
-            "bound_by": None, "library_ms": None})
+            "bound_by": None, "library_ms": None, "bound_ms_22x12": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if ms is not None:
             r["ms"], r["plain_ms"] = ms, plain_ms
@@ -284,7 +335,7 @@ def main() -> None:
             raise AssertionError(f"K1 differs from its plain version ({spec.name})")
         if spec is limb.FIELD:                      # the main path's modulus
             record(fk.mul_tiled, err, ms, plain,
-                   roof(MUL_LANES * IMAD_MUL, 3 * MUL_LANES * 22 * 4))
+                   roof(MUL_LANES * MUL, 3 * MUL_LANES * 22 * 4))
         else:
             record(fk.mul_tiled, err)
 
@@ -302,8 +353,8 @@ def main() -> None:
             plain = cuda_ms(lambda: fk.pow_tiled_ref(x, e), 2)
             msg += f", kernel {ms:.4f} ms, plain {plain:.4f} ms"
             digits = fk.pow_digits(e)
-            per_lane = (14 * IMAD_MUL + 4 * (len(digits) - 1) * IMAD_SQ
-                        + sum(1 for d in digits[1:] if d) * IMAD_MUL)
+            per_lane = (14 * MUL + 4 * (len(digits) - 1) * SQ
+                        + sum(1 for d in digits[1:] if d) * MUL)
             record(fk.pow_tiled, err, ms, plain,
                    roof(BATCH * per_lane, 2 * BATCH * 22 * 4 + 4 * len(digits)))
         else:
@@ -316,9 +367,8 @@ def main() -> None:
     s = zt.Scalar.from_bytes_wide(rand_bytes((BATCH, 64)))
     # multiply-adds per lane: the Niels table, then per window the
     # doublings (T on the last) and one Niels addition
-    k3_lane = IMAD_MUL + 250 * (IMAD_PDBL_T + IMAD_MADD)
-    k4_lane = (7 * IMAD_PADD + 8 * IMAD_MUL
-               + 63 * (3 * IMAD_PDBL + IMAD_PDBL_T + IMAD_MADD))
+    k3_lane = MUL + 250 * (PDBL_T + MADD)
+    k4_lane = 7 * PADD + 8 * MUL + 63 * (3 * PDBL + PDBL_T + MADD)
     ladder_cases = (
         (fk.scalar_mul_windowed_stepped, fk.scalar_mul_windowed_stepped_ref,
          s.into_bits(250), 1, "K3 ladder (width 1)", k3_lane),
@@ -446,6 +496,7 @@ def main() -> None:
                 "fixed_base_mul_stepped": (SOURCE, TPU_KERNELS, 437),
                 "scalar_mul_windowed_fused": (SOURCE, TPU_KERNELS, 909),
                 "bucket_accum_all": (MSM_SOURCE, TPU_MSM_KERNELS, 392),
+                "to_field32": (MSM_SOURCE, TPU_MSM_KERNELS, 392),
                 "combine_tables": (MSM_SOURCE, TPU_MSM_KERNELS, 247),
                 "bucket_accum_k": (MSM_SOURCE, TPU_MSM_KERNELS, 339),
                 "bucket_accum": (MSM_SOURCE, TPU_MSM_KERNELS, 141),
@@ -494,16 +545,15 @@ def k7_work(dig_g, nb: int, lanes: int) -> tuple[float, float]:
     nonzero digit; points and digits read once, tables written once."""
     ngrp, k, n = dig_g.shape
     nonzero = int((dig_g != 0).sum().item())
-    return (nonzero * IMAD_PADD,
+    return (nonzero * PADD,
             n * PT_BYTES + 4 * dig_g.numel() + ngrp * k * nb * lanes * PT_BYTES)
 
 
 def k8_work(nwin: int, nb: int, c: int) -> tuple[float, float]:
     """(multiply-adds, bytes) of K8: 2(nb-1) additions per window, then per
     window c doublings and one addition."""
-    imads = nwin * (2 * (nb - 1) * IMAD_PADD + (c - 1) * IMAD_PDBL + IMAD_PDBL_T
-                    + IMAD_PADD)
-    return imads, nwin * nb * PT_BYTES + PT_BYTES
+    work = nwin * (2 * (nb - 1) * PADD + (c - 1) * PDBL + PDBL_T + PADD)
+    return work, nwin * nb * PT_BYTES + PT_BYTES
 
 
 def msm_phases(dev, rng, roof, card, ecdh_pts, record) -> dict[str, int]:
@@ -561,6 +611,12 @@ def msm_phases(dev, rng, roof, card, ecdh_pts, record) -> dict[str, int]:
     small = tuple(c[:MSM_SMALL].contiguous() for c in pts)
     s_small = zt.Scalar.from_bytes(sc[:MSM_SMALL])[0]
     pst, dig, nb, lanes, nwin = msm_inputs(small, s_small, MSM_C)
+    errp = max_abs_err(mk.to_field32(pst), mk.to_field32_ref(pst))
+    phase("to_field32", f"{MSM_SMALL} points: max_abs_err {errp} (tolerance "
+          f"{TOLERANCE})")
+    if errp > TOLERANCE:
+        raise AssertionError("the prep kernel differs from its plain version")
+    record(mk.to_field32, errp)
     tbl = mk.bucket_accum_all(pst, dig, nb, lanes)
     err7 = max_abs_err(tbl, mk.bucket_accum_all_ref(pst, dig, nb, lanes))
     ms7 = cuda_ms(lambda: mk.bucket_accum_all(pst, dig, nb, lanes), 5)
@@ -638,6 +694,18 @@ def msm_phases(dev, rng, roof, card, ecdh_pts, record) -> dict[str, int]:
     pts_big = ri._decompress(wire)[0]
     s_big = zt.Scalar.from_bytes(sc)[0]
     pst, dig, nb, lanes, nwin = msm_inputs(pts_big, s_big, MSM_C)
+    w32 = mk.to_field32(pst)
+    errp = max_abs_err(w32, mk.to_field32_ref(pst))
+    msp = cuda_ms(lambda: mk.to_field32(pst), 10)
+    plainp = cuda_ms(lambda: mk.to_field32_ref(pst), 1)
+    bp = roof(4 * pst.shape[1] * MUL, 4 * (pst.numel() + w32.numel()))
+    phase("to_field32", f"{pst.shape[1]} points: max_abs_err {errp} (tolerance "
+          f"{TOLERANCE}), kernel {msp:.4f} ms, plain {plainp:.3f} ms, bound "
+          f"{bp['bound_ms']:.4f} ms by {bp['bound_by']}")
+    if errp > TOLERANCE:
+        raise AssertionError("the prep kernel differs from its plain version at 2^20")
+    record(mk.to_field32, errp, msp, plainp, bp)
+    del w32
     tbl = mk.bucket_accum_all(pst, dig, nb, lanes)
     t0 = time.perf_counter()
     ref = mk.bucket_accum_all_ref(pst, dig, nb, lanes)
@@ -661,14 +729,14 @@ def msm_phases(dev, rng, roof, card, ecdh_pts, record) -> dict[str, int]:
     if err5 > TOLERANCE:
         raise AssertionError("K5 differs from its plain version on the first "
                              "lane-reduce round")
-    b5 = roof(n5 * IMAD_PADD, 3 * n5 * PT_BYTES)
+    b5 = roof(n5 * PADD, 3 * n5 * PT_BYTES)
     record(fk.padd_tiled, err5, ms5, plain5, b5)
     red = tmsm._lane_reduce(tuple(arr[:, :, j] for j in range(4)))
     tables = tuple(t.reshape(-1, nb, 22)[:nwin].contiguous() for t in red)
     ms8 = cuda_ms(lambda: mk.combine_tables(tables, nb, nwin, MSM_C), 5)
     phase("msm kernels at 2^20", f"K7 {ms7:.3f} ms (plain {plain7:.1f} ms, one "
           f"call; max_abs_err {err7}; bound {b7['bound_ms']:.3f} ms by "
-          f"{b7['bound_by']}), "
+          f"{b7['bound_by']}, 22 x 12 basis {b7['bound_ms_22x12']:.3f} ms), "
           f"{lanes} lanes x {dig.shape[0]} groups, tables "
           f"{tbl.numel() * 4 / 2**30:.2f} GiB; K5 first lane-reduce round "
           f"{n5} lanes {ms5:.3f} ms (plain {plain5:.1f} ms; max_abs_err {err5}; "
@@ -688,6 +756,7 @@ def msm_phases(dev, rng, roof, card, ecdh_pts, record) -> dict[str, int]:
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     profile_call("msm profile", f"one Engine.msm call at {MSM_BATCH}, c {MSM_C}",
                  lambda: eng.msm(wire, sc))
+    profile_copies("msm copies", lambda: eng.msm(wire, sc))
     return counts, dict(wire=wire, sc=sc, engine=got.cpu().numpy().tobytes(),
                         oracle_wire=oracle_wire)
 
@@ -730,7 +799,7 @@ def keygen_phases(dev, rng, roof, card, pts, s, record) -> dict[str, int]:
         plain = cuda_ms(lambda: fk.fixed_base_mul_stepped_ref(
             win, width, signed=signed, glue=glue), 1)
         tbl = ed.comb_table(width, signed, fk.comb_layout(glue), dev)
-        bound = roof(BATCH * win.shape[-1] * IMAD_MADD7,
+        bound = roof(BATCH * win.shape[-1] * MADD7,
                      tbl.nbytes + win.nbytes + BATCH * PT_BYTES)
         label = f"{'signed' if signed else 'unsigned'} width {width} {glue}"
         phase("K6 fixed_base_mul_stepped", f"{label}, {BATCH} lanes: max_abs_err "
@@ -794,8 +863,7 @@ def keygen_phases(dev, rng, roof, card, pts, s, record) -> dict[str, int]:
                           ri._compress(fk.scalar_mul_windowed_signed(pts, win4, 4)))
     ms = cuda_ms(lambda: fk.scalar_mul_windowed_fused(pts, win4, 4), 3)
     plain = cuda_ms(lambda: fk.scalar_mul_windowed_stepped_ref(pts, win4, 4), 1)
-    k10_lane = (14 * IMAD_PADD + 15 * IMAD_MUL
-                + 63 * (3 * IMAD_PDBL + IMAD_PDBL_T + IMAD_MADD))
+    k10_lane = 14 * PADD + 15 * MUL + 63 * (3 * PDBL + PDBL_T + MADD)
     bound = roof(BATCH * k10_lane, BATCH * (2 * PT_BYTES + 4 * 63))
     phase("K10 scalar_mul_windowed_fused", f"width 4, {BATCH} lanes: {k10} launch, "
           f"max_abs_err {err} (tolerance {TOLERANCE}), equal to K4 after encoding: "
@@ -873,10 +941,12 @@ def msm_option_phases(dev, roof, card, ctx, record) -> dict[str, int]:
 
     for n in (MSM_CHECK, MSM_BATCH):
         pts_n = ri._decompress(wire[:n])[0]
-        pst, dig, nb, lanes, _ = msm_inputs(pts_n, zt.Scalar.from_bytes(sc[:n])[0],
+        pst, dig, nb, dense, _ = msm_inputs(pts_n, zt.Scalar.from_bytes(sc[:n])[0],
                                             MSM_C)
         for label, fn, ref, k, pick, folds in entries:
             d = pick(dig)
+            # the lanes each entry's wrapper picks on the MSM path
+            lanes = mk.wide_lanes(n, 1, dev) if k == 1 else dense
             for fold in folds:
                 got = call(fn, pst, d, nb, k, lanes, fold)
                 want, plain = host_ms(lambda: call(ref, pst, d, nb, k, lanes, fold))
@@ -890,7 +960,10 @@ def msm_option_phases(dev, roof, card, ctx, record) -> dict[str, int]:
                     ms = cuda_ms(lambda: call(fn, pst, d, nb, k, lanes, fold), 3)
                     bound = roof(*k7_work(d.view(1, k, -1), nb, lanes))
                     msg += (f", kernel {ms:.3f} ms, plain {plain:.1f} ms (one call), "
-                            f"bound {bound['bound_ms']:.3f} ms by {bound['bound_by']}")
+                            f"bound {bound['bound_ms']:.3f} ms by {bound['bound_by']} "
+                            f"(22 x 12 basis {bound['bound_ms_22x12']:.3f} ms)")
+                    if k < 3:
+                        msg += lane_cost(fn, pst, d, nb, dense)
                     if fold == 0:
                         record(fn, err, ms, plain, bound)
                     else:
@@ -934,7 +1007,7 @@ def msm_option_phases(dev, roof, card, ctx, record) -> dict[str, int]:
         ok = ri._compress(total).cpu().numpy().tobytes() == want
         phase("msm dense options", f"{label}: {ms:.1f} ms (one call, {card}), "
               f"equals the oracle's aggregate: {ok}; launches {json.dumps(launched)}")
-        needed = {entry, "padd_tiled"} | ({"combine_tables"} if kw.get(
+        needed = {entry, "to_field32", "padd_tiled"} | ({"combine_tables"} if kw.get(
             "fused_combine", True) else set())
         if not ok or needed - set(launched):
             raise AssertionError(f"_msm_dense({label}) at 2^20: wrong sum or "
@@ -942,6 +1015,31 @@ def msm_option_phases(dev, roof, card, ctx, record) -> dict[str, int]:
         if entry in ("bucket_accum", "bucket_accum2"):
             counts[entry] = launched[entry]
     return counts
+
+
+def lane_cost(fn, pst, d, nb: int, dense: int) -> str:
+    """What the lanes of K11 or K12 cost: the kernel and its lane reduction
+    (parallel/msm.py:_lane_tables, K5 rounds), CUDA-event means, at the
+    lanes of one wave (wide_lanes), of two full waves (at least 8 points a
+    lane) and at ``dense`` (dense_lanes) lanes."""
+    import importlib
+
+    from zerocaf_tpu_torch.ops.kernels import msm_kernels as mk
+
+    tmsm = importlib.import_module("zerocaf_tpu_torch.parallel.msm")
+    k, n = d.shape
+    one_wave = mk.wide_lanes(n, k, pst.device)
+    two_waves = min(1 << round(np.log2(2 * mk.wave_threads(pst.device) / k)),
+                    1 << ((n >> 3).bit_length() - 1))
+    parts = []
+    for n_lanes in (one_wave, two_waves, dense):
+        tbl = fn(pst, d, nb, n_lanes)
+        k_ms = cuda_ms(lambda: fn(pst, d, nb, n_lanes), 3)
+        r_ms = cuda_ms(lambda: tmsm._lane_tables(tbl), 3)
+        parts.append(f"{n_lanes} lanes: kernel {k_ms:.3f} + lane reduction "
+                     f"{r_ms:.3f} ms")
+        del tbl
+    return "; " + ", against ".join(parts)
 
 
 def sharded_phases(dev, card, ctx) -> dict[str, int]:
@@ -987,7 +1085,8 @@ def sharded_phases(dev, card, ctx) -> dict[str, int]:
             raise AssertionError("msm_sharded (1 rank, pod) differs from the "
                                  "oracle or Engine.msm")
         if (launched["bucket_accum_k"] != ngrp or launched["bucket_accum_all"]
-                or launched["combine_tables"] or not launched["padd_tiled"]):
+                or launched["combine_tables"] or not launched["padd_tiled"]
+                or not launched["to_field32"]):
             raise AssertionError(f"msm_sharded (1 rank, pod) launches: {launched}")
         t = call_ms(lambda: msm_sharded(pts, s, mesh, **pod), MSM_RATE_CALLS)
         phase("msm_sharded 1 rank", f"{MSM_BATCH} points, NCCL on {mesh.device}, "
@@ -1145,6 +1244,50 @@ def profile_call(label: str, what: str, fn) -> None:
     for e in top:
         phase(label, f"{e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x {e.key[:90]}")
+
+
+def profile_copies(label: str, fn, top: int = 8) -> None:
+    """Name the callers of the torch.cat / torch.stack copies of one call:
+    both functions wrapped for that call, each copy timed by CUDA events
+    around it and charged to the first frames of the port that called it
+    (the profiler's own stack grouping names none on that machine)."""
+    import traceback
+
+    real = {"cat": torch.cat, "stack": torch.stack}
+    events = []
+
+    def wrapped(name):
+        def copy(*args, **kwargs):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "zerocaf_tpu_torch" in f.filename][::-1][:5]
+            where = " <- ".join(f"{f.filename.split('zerocaf_tpu_torch/')[-1]}"
+                                f":{f.lineno} {f.name}" for f in frames)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[name](*args, **kwargs)
+            end.record()
+            events.append((f"{name} in {where}", start, end))
+            return out
+        return copy
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cat, torch.stack = wrapped("cat"), wrapped("stack")
+    try:
+        fn()
+    finally:
+        torch.cat, torch.stack = real["cat"], real["stack"]
+    torch.cuda.synchronize()
+    by_site = {}
+    for where, start, end in events:
+        ms, count = by_site.get(where, (0.0, 0))
+        by_site[where] = (ms + start.elapsed_time(end), count + 1)
+    total = sum(ms for ms, _ in by_site.values())
+    phase(label, f"torch.cat and torch.stack: {len(events)} calls, {total:.3f} "
+          f"device ms in {len(by_site)} call sites")
+    for where, (ms, count) in sorted(by_site.items(), key=lambda kv: -kv[1][0])[:top]:
+        phase(label, f"{ms:9.3f} ms {count:5d}x {where}")
 
 
 if __name__ == "__main__":

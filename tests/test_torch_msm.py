@@ -21,6 +21,7 @@ from zerocaf_tpu.models import edwards as jed
 from zerocaf_tpu.scalar import Scalar as JScalar
 from zerocaf_tpu_torch import EdwardsPoint, Engine, Scalar, pad_msm
 from zerocaf_tpu_torch.models import ristretto as tri
+from zerocaf_tpu_torch.ops import limb as tl
 from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
 from zerocaf_tpu_torch.ops.kernels import msm_kernels as mk
 
@@ -225,6 +226,7 @@ def test_bucket_accum_all_ref_matches_oracle(case):
             assert o.point_eq(got, want), (w, b)
     # bucket 0 is never written: it stays the identity limb for limb
     assert (flat[:, 0, :, :, :] == np.array([0, 1, 1, 0])[:, None] * np.eye(1, 22)).all()
+    assert torch.equal(tbl, tl.canonical(tbl, tl.FIELD))   # canonical limbs
 
 
 def test_bucket_accum_all_checks_its_inputs():
@@ -236,6 +238,46 @@ def test_bucket_accum_all_checks_its_inputs():
         mk.bucket_accum_all(pts, dig.long(), 5, 32)
     with pytest.raises(ValueError, match="points"):
         mk.bucket_accum_all(pts[:3], dig, 5, 32)
+    # a window's table must fit the kernel's 32-bit offsets: nb lanes PT < 2^31
+    with pytest.raises(ValueError, match="table entries"):
+        mk.bucket_accum_all(pts, dig, 5, 1 << 23)
+
+
+def _canonical(t):
+    """True where every [..., 22] element of t is canonical: limbs in [0,
+    4096) and value below p."""
+    return torch.equal(t, tl.canonical(t, tl.FIELD))
+
+
+def test_to_field32_ref_matches_oracle(case):
+    """The prep's plain version: signed semi limbs (the decoder's, and
+    negated) -> the 8 x 32 core's words of v R mod p, R = 2^256."""
+    pts = tri._decompress(torch.tensor(case["wire"]))[0]
+    pst = torch.stack((pts[0], tl.neg(pts[1]), pts[2], tl.neg(pts[3])))
+    words = mk.to_field32_ref(pst).numpy().astype(np.int64) & 0xFFFFFFFF
+    assert words.shape == (N, 4, 8)
+    for i in range(N):
+        for j in range(4):
+            v = o.limbs_to_int(pst[j, i].numpy()) % o.P
+            got = sum(int(w) << (32 * q) for q, w in enumerate(words[i, j]))
+            assert got == v * 2**256 % o.P
+
+
+def test_wide_lanes_fill_one_wave():
+    """K11 launches only one window: its lanes fill about one wave of
+    k_bucket_accum (on a CPU tensor, an H100's), with at least 32 points a
+    lane; K12 keeps dense_lanes."""
+    cpu = torch.device("cpu")
+    wave = mk.wave_threads(cpu)
+    assert wave == 132 * 4 * 128
+    assert mk.wide_lanes(1 << 20, 1, cpu) == 1 << 15
+    assert mk.wide_lanes(1 << 12, 1, cpu) == 1 << 7
+    assert mk.wide_lanes(N, 1, cpu) == mk.dense_lanes(N) == 32
+    for n in (1 << 14, 1 << 20, 1 << 22):
+        for k in (1, 2):
+            lanes = mk.wide_lanes(n, k, cpu)
+            assert lanes & (lanes - 1) == 0 and lanes <= max(32, n // 32)
+            assert lanes * k <= 2 * wave
 
 
 # --- K8 ---------------------------------------------------------------------
@@ -366,7 +408,18 @@ def test_bucket_accum_all_kernel_equals_plain(cuda, case, c, lanes):
     dig[rng.random(dig.shape) < 0.1] = 0
     dig = torch.tensor(dig, device=cuda)
     got = mk.bucket_accum_all(pts, dig, nb, lanes)
+    assert _canonical(got)
     assert torch.equal(got, mk.bucket_accum_all_ref(pts, dig, nb, lanes))
+
+
+@pytest.mark.cuda
+def test_to_field32_kernel_equals_plain(cuda, case):
+    """The prep kernel on signed semi limbs against its plain version word
+    for word."""
+    pts = tri._decompress(torch.tensor(case["wire"]))[0]
+    pst = torch.stack((pts[0], tl.neg(pts[1]), pts[2], tl.neg(pts[3])))
+    pst = pst.repeat(1, 40, 1).to(cuda)
+    assert torch.equal(mk.to_field32(pst), mk.to_field32_ref(pst))
 
 
 @pytest.mark.cuda
@@ -561,11 +614,14 @@ def test_group_entry_kernels_equal_plain(cuda, case, fold):
     pts, dig, nb = _group_inputs(case, 6, n=500, ngrp=1)
     pts, dig, lanes = pts.to(cuda), dig[0].to(cuda), 64
     got = mk.bucket_accum_k(pts, dig, nb, 4, lanes, fold=fold)
+    assert _canonical(got[:, :, lanes >> min(fold, 1):])  # lanes no round rewrote
     assert torch.equal(got, mk.bucket_accum_k_ref(pts, dig, nb, 4, lanes, fold=fold))
     got = mk.bucket_accum_all(pts, dig[None], nb, lanes, fold=fold)
     assert torch.equal(got, mk.bucket_accum_all_ref(pts, dig[None], nb, lanes, fold=fold))
     if fold == 0:
-        assert torch.equal(mk.bucket_accum(pts, dig[:1].contiguous(), nb, lanes),
-                           mk.bucket_accum_ref(pts, dig[:1], nb, lanes))
-        assert torch.equal(mk.bucket_accum2(pts, dig[2:].contiguous(), nb, lanes),
-                           mk.bucket_accum2_ref(pts, dig[2:], nb, lanes))
+        for entry, ref, d in ((mk.bucket_accum, mk.bucket_accum_ref, dig[:1]),
+                              (mk.bucket_accum2, mk.bucket_accum2_ref, dig[2:])):
+            for lanes_ in (lanes, None):          # None: the wrapper's lanes
+                got = entry(pts, d.contiguous(), nb, lanes_)
+                assert _canonical(got)
+                assert torch.equal(got, ref(pts, d, nb, lanes_))

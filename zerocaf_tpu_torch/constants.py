@@ -66,6 +66,11 @@ ONE_MINUS_D_SQ_LIMBS = _limbs(ONE_MINUS_D_SQ)
 D_MINUS_ONE_SQ_LIMBS = _limbs(D_MINUS_ONE_SQ)
 
 
+# The 8 x 32-bit Montgomery core of k_bucket_accum (csrc/field32.cuh):
+# R = 2^256, a value v held as v R mod p in 8 little-endian uint32 words.
+FIELD32_R = 1 << 256
+
+
 def point_limbs(p) -> np.ndarray:
     """An oracle extended point (4 ints) as stacked [4, 22] limbs."""
     return np.stack([_limbs(c) for c in p])

@@ -5,10 +5,12 @@ Every point is a batch: coordinates are int32 ``[..., 22]`` limb tensors.
 The unified a = -1 HWCD addition is complete on this curve, so identity and
 equal operands need no special case.  Scalar multiplication runs on the
 kernels of ``ops/kernels/field_kernels.py``: ``__mul__`` is the 250-step
-oblivious ladder (K3 at width 1), ``mul_windowed`` the signed width-4
-windows (K4).  Both read every table entry at every step; no access is
-indexed by a secret digit.  The JAX package's ``take_along_axis`` windowed
-path is not ported: it is not oblivious (docs/CONSTANT_TIME.md).
+oblivious ladder (K3 at width 1), ``mul_windowed`` at width 4 the signed
+windows (K4).  Both read every table entry at every step.  Every other
+width of ``mul_windowed`` takes the JAX package's unsigned windowed route
+(``_scalar_mul_windowed``), whose table gather is indexed by the digit:
+like the JAX package's, that route is not oblivious
+(docs/CONSTANT_TIME.md).
 
 The one exception is ``basepoint_mul``, the fixed-base comb (K6) that key
 generation runs: it loads one entry of a shared table per window at the
@@ -79,6 +81,26 @@ def _select(mask, p, q):
 
 
 _identity_like = _fk.identity_like
+
+
+def _scalar_mul_windowed(p, windows, width: int = 4):
+    """Fixed-window variable-base multiplication: per-lane table of the
+    2^width small multiples, then ceil(250/width) rounds of width doublings
+    (T only on the last) and one addition of the entry gathered at the
+    digit.  windows: [..., nwin] unsigned digits, LSB first.  The gather
+    index is the (secret) digit: not oblivious."""
+    p = _broadcast_point(p, windows.shape[:-1])
+    tbl = [_identity_like(p), p]
+    for _ in range(2, 1 << width):
+        tbl.append(_add(tbl[-1], p))
+    T = tuple(torch.stack([t[i] for t in tbl], dim=-2) for i in range(4))
+    Q = _identity_like(p)
+    for d in reversed(windows.unbind(-1)):
+        for i in range(width):
+            Q = _double(Q, with_t=(i == width - 1))
+        idx = d.long()[..., None, None].expand(*d.shape, 1, _l.L)
+        Q = _add(Q, tuple(torch.gather(Tc, -2, idx).squeeze(-2) for Tc in T))
+    return Q
 
 
 def _broadcast_point(p, digit_batch):
@@ -240,14 +262,17 @@ class EdwardsPoint:
         return cls(*_const_point(_BASEPOINT_ROWS, tuple(shape), device))
 
     @classmethod
-    def basepoint_mul(cls, scalar: Scalar, width: int | None = None) -> "EdwardsPoint":
+    def basepoint_mul(cls, scalar: Scalar, width: int | None = None,
+                      use_fused: bool | None = None) -> "EdwardsPoint":
         """B*k by the fixed-base comb (K6): ceil(250/width) 7M mixed
         additions, no doublings.  width None runs the signed comb at
         COMB_WIDTH_SIGNED on the packed table; an explicit width the
         unsigned comb at that width on the rows table.  The kernel on CUDA,
         its plain version on the CPU: one route on both devices.  The
         table read is indexed by the secret digit (see the module
-        docstring)."""
+        docstring).  use_fused is accepted for the JAX package's
+        signature, where it picks its TPU kernel or its XLA comb; it has
+        no effect here."""
         if width is None:
             sw = COMB_WIDTH_SIGNED
             return cls(*_fixed_base_mul_signed(scalar.windows(sw, -(-250 // sw)), sw))
@@ -279,10 +304,18 @@ class EdwardsPoint:
     def __rmul__(self, scalar: Scalar) -> "EdwardsPoint":
         return self.__mul__(scalar)
 
-    def mul_windowed(self, scalar: Scalar, width: int = 4) -> "EdwardsPoint":
-        """Signed fixed-window multiplication (K4): ceil(250/width) windows,
-        a (2^(width-1)+1)-entry table read in full at every window."""
+    def mul_windowed(self, scalar: Scalar, width: int = 4,
+                     use_fused: bool | None = None) -> "EdwardsPoint":
+        """Fixed-window multiplication over ceil(250/width) windows, routed
+        as the JAX package routes it: width 4 runs the signed windows (K4),
+        a 9-entry table read in full at every window; every other width the
+        unsigned ``_scalar_mul_windowed``, whose gather is indexed by the
+        digit.  use_fused is accepted for the JAX package's signature,
+        where it picks its TPU kernel; it has no effect here."""
         windows = scalar.windows(width, -(-250 // width))
+        if width != 4:
+            return EdwardsPoint(*_scalar_mul_windowed(self._tuple(), windows,
+                                                      width))
         pt = _broadcast_point(self._tuple(), windows.shape[:-1])
         return EdwardsPoint(*_fk.scalar_mul_windowed_signed(pt, windows, width))
 

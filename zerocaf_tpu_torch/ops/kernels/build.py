@@ -43,7 +43,8 @@ SIGNATURES = {
         "zc_comb": [_ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _ptr, _i32, _ptr],
     },
     "msm_kernels": {
-        "zc_bucket_accum": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _ptr],
+        "zc_to_field32": [_ptr, _ptr, _i32, _ptr],
+        "zc_bucket_accum": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr],
         "zc_combine": [_ptr, _ptr, _i32, _i32, _i32, _ptr],
     },
 }

@@ -12,9 +12,19 @@ versions (zerocaf_tpu/ops/pallas/msm_kernels.py counterpart).
 
 The TPU needed a Pallas program for each of K7, K9, K11 and K12 because
 their output blocks had to fit VMEM at 128, 128, 512 and 256 lanes; on the
-card they are one kernel, ``k_bucket_accum``, which takes the group size
-and count as arguments.  Each entry has its own wrapper, launch count and
-plain version, and all use ``dense_lanes(n)`` lanes.
+card they are one kernel, ``k_bucket_accum``, one thread a (window, lane),
+which takes the window and lane counts as arguments.  Each entry has its
+own wrapper, launch count and plain version.  K7's callers pass
+``dense_lanes(n)`` lanes and K9 and K12 take them by default; K11 takes
+``wide_lanes(n, 1, device)``: a launch of one window needs more lanes to
+fill the card.
+
+``k_bucket_accum`` computes on the 8 x 32-bit Montgomery core of
+``csrc/field32.cuh``: ``to_field32`` (its prep kernel, with its own launch
+count) converts the points to that form once a call, and the kernel
+writes its tables as canonical 22 x 12-bit limbs.  The plain versions add
+in the same order in the limb algebra of ``field_kernels`` and canonicalize
+at the end, so kernel and plain version agree limb for limb.
 
 ``fold=f`` (K7 and K9; ``_fold_lanes`` on the TPU) runs f rounds of the
 lane tree over the tables in place after the launch: lanes 0:lanes>>f of
@@ -26,15 +36,17 @@ have.
 The CUDA source is ``zerocaf_tpu_torch/csrc/msm_kernels.cu``.  Each wrapper
 checks its tensors and raises on anything else; for CUDA tensors it launches
 its kernel (or raises), for CPU tensors it runs the plain version.
-``<wrapper>.launches`` counts kernel launches and nothing else.  The plain
-versions use the limb algebra of ``field_kernels`` in the kernels' order, so
-kernel and plain version agree limb for limb.
+``<wrapper>.launches`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ... import constants as C
+from .. import limb as _l
 from . import build
 from .field_kernels import (L, _check_limbs, _on_cpu, _padd_ext_block,
                             _pdbl_block, identity_like, padd_tiled,
@@ -44,16 +56,41 @@ PT = 4 * L                 # int32 of one extended point
 MAX_COMBINE_WINDOWS = 128  # K8 runs one thread per window in one block
 MIN_LANES = 32
 MAX_LANES = 4096
+ACCUM_THREADS_PER_SM = 4 * 128   # k_bucket_accum's __launch_bounds__(128, 4)
+H100_SMS = 132             # the SMs of the card that a CPU tensor stands for
+NW32 = 8                   # words of a field element in the 8 x 32 core
 
 
 def dense_lanes(n: int) -> int:
     """Lanes (private tables) per window group for n points: a power of two
     near n / 256, between 32 and 4096, so each lane folds about 256 points
-    per window.  At 2^20 points and 11 window groups that is 45,056
-    threads: 1.33 waves at K7's 2 blocks of 128 threads per SM on an H100
-    (PERF.md)."""
+    per window.  At 2^20 points and 44 windows (11 groups of 4) K7 then
+    runs 180,224 threads: 2.67 waves of ``wave_threads`` on an H100."""
     want = max(1, n >> 8)
     return min(MAX_LANES, max(MIN_LANES, 1 << (want - 1).bit_length()))
+
+
+def wave_threads(device: torch.device) -> int:
+    """Threads of ``k_bucket_accum`` resident at once on ``device``'s card:
+    its SMs x 4 blocks of 128.  A CPU tensor has no card; its plain versions
+    take an H100's 132 SMs, so that they pick the lanes the kernel picks
+    there."""
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else H100_SMS)
+    return sms * ACCUM_THREADS_PER_SM
+
+
+def wide_lanes(n: int, windows: int, device: torch.device) -> int:
+    """Lanes for a launch of only ``windows`` windows (K11: 1): the power of
+    two nearest one wave of ``k_bucket_accum`` on ``device`` over the
+    windows, but at least 32 points a lane, and never fewer than
+    ``dense_lanes(n)``.  At 2^20 points on an H100 that is 32,768 lanes.
+    More lanes cost the lane reduction more K5 work, and past some 32
+    points a lane the kernel's fixed work per entry (identity stores, the
+    conversion to limbs) outgrows its additions (PERF.md)."""
+    wave = 1 << max(0, round(math.log2(wave_threads(device) / windows)))
+    most = 1 << max(0, (n >> 5).bit_length() - 1)
+    return max(dense_lanes(n), min(wave, most))
 
 
 def _launch(name: str, device: torch.device, fn_name: str, *args) -> None:
@@ -73,10 +110,15 @@ def _check_accum(name: str, pts, dig_g, nb: int, lanes: int,
                          f"{pts.shape[1]} points")
     if not dig_g.is_contiguous() or dig_g.device != pts.device:
         raise ValueError(f"{name}: digits must be contiguous, on {pts.device}")
-    if nb < 2 or not 1 <= lanes <= MAX_LANES:
+    if nb < 2 or lanes < 1:
         raise ValueError(f"{name}: unsupported nb {nb} or lanes {lanes}")
     if fold < 0 or lanes % (1 << fold):
         raise ValueError(f"{name}: {fold} fold rounds do not divide {lanes} lanes")
+    # the kernel's int32 thread index, point index and offsets inside a
+    # window's table
+    if (dig_g.shape[0] * dig_g.shape[1] * lanes >= 1 << 31
+            or 4 * pts.shape[1] >= 1 << 31 or nb * lanes * PT >= 1 << 31):
+        raise ValueError(f"{name}: too many threads, points or table entries")
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +137,8 @@ def _identity_tables(shape, device) -> torch.Tensor:
 def _accum_ref(pts, dig_g, nb: int, lanes: int):
     """Plain version of ``k_bucket_accum``: the same per-lane tables, point
     chunk by point chunk (lane t takes the points i == t mod lanes, in
-    order of i), every window and lane of a chunk at once."""
+    order of i), every window and lane of a chunk at once, then
+    canonicalized."""
     ngrp, k, n = dig_g.shape
     nw = ngrp * k
     dig = dig_g.reshape(nw, n)
@@ -115,7 +158,66 @@ def _accum_ref(pts, dig_g, nb: int, lanes: int):
         R = _padd_ext_block(tuple(e[..., j, :] for j in range(4)), (X, Y, Z, T))
         upd = torch.where((d != 0)[..., None, None], torch.stack(R, dim=-2), e)
         tbl[rows, a, cols] = upd
+    for w in range(nw):                   # one window at a time: less memory
+        tbl[w] = _l.canonical(tbl[w], _l.FIELD)
     return tbl.reshape(ngrp, k, nb, lanes, 4, L)
+
+
+# ---------------------------------------------------------------------------
+# The prep kernel and the 8 x 32 core's boundary
+# ---------------------------------------------------------------------------
+
+
+def _limbs_to_words(x):
+    """Canonical [..., 22] limbs -> [..., 8] little-endian 32-bit words
+    (uint32 bits in int32)."""
+    x = x.long()
+    words = []
+    for i in range(NW32):
+        acc = torch.zeros_like(x[..., 0])
+        for k in range(L):
+            sh = _l.W * k - 32 * i
+            if -_l.W < sh < 32:
+                acc = acc | (x[..., k] << sh if sh >= 0 else x[..., k] >> -sh)
+        words.append(acc & 0xFFFFFFFF)
+    w = torch.stack(words, dim=-1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def _mont_const(v: int, device):
+    return _l.const(_l.int_limbs(v % C.P), device)
+
+
+def to_field32_ref(pts):
+    """Plain version of ``k_to_field32``: [4, n, 22] limbs -> [n, 4, 8]
+    words of v R mod p (R = 2^256)."""
+    v = _l.canonical(pts, _l.FIELD)
+    mont = _l.canonical(_l.mul(v, _mont_const(C.FIELD32_R, pts.device),
+                               _l.FIELD), _l.FIELD)
+    return _limbs_to_words(mont).transpose(0, 1).contiguous()
+
+
+def to_field32(pts):
+    """The points of K7, K9, K11 and K12 in the 8 x 32 core's form:
+    [4, n, 22] int32 limbs (any values the limb engine makes) -> [n, 4, 8]
+    int32 holding the uint32 words of v R mod p, one 128-byte point a
+    row."""
+    if not isinstance(pts, torch.Tensor) or pts.dim() != 3 or pts.shape[0] != 4:
+        raise ValueError(f"to_field32: points must be one [4, n, {L}] tensor")
+    _check_limbs("to_field32", pts)
+    if _on_cpu(pts):
+        return to_field32_ref(pts)
+    n = pts.shape[1]
+    if 4 * n >= 1 << 31:
+        raise ValueError(f"to_field32: too many points ({n})")
+    out = torch.empty((n, 4, NW32), dtype=torch.int32, device=pts.device)
+    if n:
+        _launch("to_field32", pts.device, "zc_to_field32", pts, out, n)
+        to_field32.launches += 1
+    return out
+
+
+to_field32.launches = 0
 
 
 def _fold_lanes(tbl, fold: int, add) -> None:
@@ -144,13 +246,12 @@ def _accum(wrapper, pts, dig_g, nb: int, lanes: int, fold: int):
         _fold_lanes(tbl, fold, padd_tiled_ref)
         return tbl
     ngrp, k, n = dig_g.shape
-    if ngrp * lanes >= 1 << 31 or n >= 1 << 31:
-        raise ValueError(f"{name}: too many threads or points")
     out = torch.empty((ngrp, k, nb, lanes, 4, L), dtype=torch.int32,
                       device=pts.device)
     if out.numel():
-        _launch(name, pts.device, "zc_bucket_accum", pts, dig_g, out, n, nb,
-                k, ngrp, lanes)
+        pts32 = to_field32(pts)
+        _launch(name, pts.device, "zc_bucket_accum", pts32, dig_g, out, n, nb,
+                ngrp * k, lanes)
         wrapper.launches += 1
         _fold_lanes(out, fold, padd_tiled)
     return out
@@ -192,50 +293,58 @@ def _one_group(name: str, dig, k: int):
     return dig.unsqueeze(0)
 
 
-def bucket_accum_k_ref(pts, dig, nb: int, k: int, lanes: int, fold: int = 0):
+def bucket_accum_k_ref(pts, dig, nb: int, k: int, lanes: int | None = None,
+                       fold: int = 0):
     """Plain version of K9."""
-    return bucket_accum_all_ref(pts, _one_group("bucket_accum_k", dig, k), nb,
-                                lanes, fold)[0]
+    dig_g = _one_group("bucket_accum_k", dig, k)
+    return bucket_accum_all_ref(pts, dig_g, nb, dense_lanes(dig.shape[1]) if lanes is None else lanes,
+                                fold)[0]
 
 
-def bucket_accum_k(pts, dig, nb: int, k: int, lanes: int, fold: int = 0):
+def bucket_accum_k(pts, dig, nb: int, k: int, lanes: int | None = None,
+                   fold: int = 0):
     """One group of k windows' per-lane tables (K9): dig [k, n] signed
-    digits -> [k, nb, lanes, 4, 22], as one group of ``bucket_accum_all``;
-    fold as there."""
-    return _accum(bucket_accum_k, pts, _one_group("bucket_accum_k", dig, k),
-                  nb, lanes, fold)[0]
+    digits -> [k, nb, lanes, 4, 22], as one group of ``bucket_accum_all``
+    (lanes None: ``dense_lanes(n)``); fold as there."""
+    dig_g = _one_group("bucket_accum_k", dig, k)
+    return _accum(bucket_accum_k, pts, dig_g, nb,
+                  dense_lanes(dig.shape[1]) if lanes is None else lanes, fold)[0]
 
 
 bucket_accum_k.launches = 0
 
 
-def bucket_accum_ref(pts, dig, nb: int, lanes: int):
+def bucket_accum_ref(pts, dig, nb: int, lanes: int | None = None):
     """Plain version of K11."""
-    return bucket_accum_all_ref(pts, _one_group("bucket_accum", dig, 1), nb,
-                                lanes)[0]
+    dig_g = _one_group("bucket_accum", dig, 1)
+    return bucket_accum_all_ref(pts, dig_g, nb, wide_lanes(
+        dig.shape[1], 1, pts.device) if lanes is None else lanes)[0]
 
 
-def bucket_accum(pts, dig, nb: int, lanes: int):
+def bucket_accum(pts, dig, nb: int, lanes: int | None = None):
     """One window's per-lane tables (K11): dig [1, n] -> [1, nb, lanes, 4,
-    22]."""
-    return _accum(bucket_accum, pts, _one_group("bucket_accum", dig, 1), nb,
-                  lanes, 0)[0]
+    22] (lanes None: ``wide_lanes(n, 1, pts.device)``)."""
+    dig_g = _one_group("bucket_accum", dig, 1)
+    return _accum(bucket_accum, pts, dig_g, nb, wide_lanes(
+        dig.shape[1], 1, pts.device) if lanes is None else lanes, 0)[0]
 
 
 bucket_accum.launches = 0
 
 
-def bucket_accum2_ref(pts, dig, nb: int, lanes: int):
+def bucket_accum2_ref(pts, dig, nb: int, lanes: int | None = None):
     """Plain version of K12."""
-    return bucket_accum_all_ref(pts, _one_group("bucket_accum2", dig, 2), nb,
-                                lanes)[0]
+    dig_g = _one_group("bucket_accum2", dig, 2)
+    return bucket_accum_all_ref(pts, dig_g, nb, dense_lanes(dig.shape[1])
+                                if lanes is None else lanes)[0]
 
 
-def bucket_accum2(pts, dig, nb: int, lanes: int):
+def bucket_accum2(pts, dig, nb: int, lanes: int | None = None):
     """Two windows' per-lane tables (K12): dig [2, n] -> [2, nb, lanes, 4,
-    22]."""
-    return _accum(bucket_accum2, pts, _one_group("bucket_accum2", dig, 2), nb,
-                  lanes, 0)[0]
+    22] (lanes None: ``dense_lanes(n)``)."""
+    dig_g = _one_group("bucket_accum2", dig, 2)
+    return _accum(bucket_accum2, pts, dig_g, nb, dense_lanes(dig.shape[1])
+                  if lanes is None else lanes, 0)[0]
 
 
 bucket_accum2.launches = 0
@@ -287,9 +396,10 @@ combine_tables.launches = 0
 
 
 def kernel_wrappers():
-    """The five wrappers, in kernel order K7, K8, K9, K11, K12."""
+    """The six wrappers, in kernel order K7, K8, K9, K11, K12, then K7's
+    prep kernel."""
     return (bucket_accum_all, combine_tables, bucket_accum_k, bucket_accum,
-            bucket_accum2)
+            bucket_accum2, to_field32)
 
 
 def reset_launch_counts() -> None:

@@ -357,13 +357,13 @@ def dense_digits(windows, c: int, nwin: int, k: int = DENSE_K):
 def _tables_by_group(pt, windows, c: int, nwin: int, k: int, accum,
                      fold: int = 0):
     """Bucket tables one group of k windows at a time: accum(pts, digits
-    [k, N], nb, lanes) launches the group's per-lane tables (the windows
-    past nwin all zero), whose lane reduction follows.  Returns a tuple of
-    [nwin, nb, 22]."""
+    [k, N], nb) launches the group's per-lane tables at the lane count its
+    wrapper picks (the windows past nwin all zero), whose lane reduction
+    follows.  Returns a tuple of [nwin, nb, 22]."""
     nb = (1 << (c - 1)) + 1
     dig = dense_digits(windows, c, nwin, k)
-    pts, lanes = torch.stack(pt), _mk.dense_lanes(dig.shape[-1])
-    per_g = [_lane_tables(accum(pts, d, nb, lanes), fold) for d in dig]
+    pts = torch.stack(pt)
+    per_g = [_lane_tables(accum(pts, d, nb), fold) for d in dig]
     return tuple(torch.cat([pg[i] for pg in per_g])[:nwin] for i in range(4))
 
 
@@ -382,8 +382,8 @@ def _msm_dense_tables_k(pt, windows, c: int, nwin: int, k: int = DENSE_K,
                         fold: int = 0):
     """Bucket tables group by group: K9 once per group of k windows, with
     ``fold`` lane rounds after each launch."""
-    def accum(pts, d, nb, lanes):
-        return _mk.bucket_accum_k(pts, d, nb, k, lanes, fold)
+    def accum(pts, d, nb):
+        return _mk.bucket_accum_k(pts, d, nb, k, fold=fold)
     return _tables_by_group(pt, windows, c, nwin, k, accum, fold)
 
 

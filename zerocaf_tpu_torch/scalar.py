@@ -76,11 +76,19 @@ class Scalar:
     def windows(self, width: int, nwin: int | None = None) -> torch.Tensor:
         """Unsigned width-bit windows [..., nwin] int32, digit i = bits
         [i*w, (i+1)*w), read straight from the canonical limbs with static
-        shifts (a window of width <= 19 straddles limbs without overflow)."""
-        if not 1 <= width <= 19:
-            raise ValueError(f"window width must be in 1..19, got {width}")
+        shifts (a window of width <= 19 straddles limbs without overflow).
+        Wider windows sum their bits (``into_bits``), as the JAX package
+        does; past width 31 a window no longer fits int32."""
+        if not 1 <= width <= 31:
+            raise ValueError(f"window width must be in 1..31, got {width}")
         if nwin is None:
             nwin = -(-250 // width)
+        if width > 19:
+            bits = self.into_bits(nwin * width)
+            groups = bits.reshape(*bits.shape[:-1], nwin, width)
+            weights = torch.tensor([1 << i for i in range(width)],
+                                   dtype=torch.int64, device=bits.device)
+            return (groups.long() * weights).sum(-1).to(torch.int32)
         lc = _l.canonical(self.limbs, _S)
         mask = (1 << width) - 1
         outs = []

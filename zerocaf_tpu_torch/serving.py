@@ -52,9 +52,12 @@ class Engine:
     device: where the wire arrays are computed; inputs are moved there.
             None means the first CUDA card, and raises where there is
             none; pass "cpu" to run the kernels' plain versions.
+    donate: accepted for the JAX package's signature, where it donates
+            the input buffers to its compiled calls; it has no effect here
+            (PyTorch runs eagerly and compiles nothing).
     """
 
-    def __init__(self, batch: int = 32768, device=None):
+    def __init__(self, batch: int = 32768, device=None, donate: bool = True):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("Engine() serves on the first CUDA card and "
