@@ -7,12 +7,18 @@ path and its sharded MSM path once on one CUDA card.
 Phases, in order (any failure raises, so the exit code is non-zero):
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: compile (or load) the kernel libraries from zerocaf_tpu_torch/csrc,
-     one nvcc process per source, all at once; ptxas' registers and spills;
-     the 32 x 32 -> 64-bit products (IMAD.WIDE.U32) in the SASS of
-     k_bucket_accum (cuobjdump), beside the count the core's design gives
-     its loop;
+     one nvcc process per source, all at once; ptxas' registers and spills,
+     and those of the kernels on the 8 x 32-bit core (k_bucket_accum,
+     k_padd, k_ladder) apart; the 32 x 32 -> 64-bit products
+     (IMAD.WIDE.U32), the IMAD.HI of the multiply's carry chains and all
+     instructions in the SASS of those kernels (cuobjdump; static counts:
+     the multiply is a rolled loop), and the instructions of one step of
+     that loop;
   3. kernels: K1-K4 against their plain PyTorch versions at the main path's
-     shapes, limb for limb, with CUDA-event times of both;
+     shapes (K1, K2 limb for limb; K3, K4, on the 8 x 32-bit core, against
+     the plain versions' canonical limbs), with CUDA-event times of both
+     and, for K3 and K4, the time their multiplies' SASS would take at the
+     card's issue rate;
   4. vectors: the 16 Ristretto small multiples, the Elligator sage vector
      and [2]B, byte for byte;
   5. ECDH at batch 32768: public keys by the ladder (K3), shared secrets by
@@ -23,7 +29,7 @@ Phases, in order (any failure raises, so the exit code is non-zero):
   7. launch counts: every kernel must have run during phases 5-6;
   8. rates: dh and hash_to_group ops/s (median of 11 calls on the host
      clock, with the min and max) and ladder mults/s;
-  9. K5 against its plain version at 2^16 lanes;
+  9. K5 against its plain version (canonical limbs) at 2^16 lanes;
  10. K7's prep kernel (to_field32), K7 and K8 against their plain versions
      at 2^14 points, c = 6, k = 4;
  11. Engine.msm at batch 2^20, c = 6, the MSM main path: points k'_i B
@@ -35,8 +41,8 @@ Phases, in order (any failure raises, so the exit code is non-zero):
  12. at 2^14 points the scan route (dense=False) and the dense route give
      the same bytes, equal to the oracle's (launches printed apart);
  13. at the shapes of the 2^20 path: the prep, K7, and K5 on the first
-     round of the lane reduction, against their plain versions, with K8's
-     time;
+     round of the lane reduction, against their plain versions, then K5's
+     time and bound on every round of that reduction, with K8's time;
  14. rates: Engine.msm points/s at 2^20 for c = 5, 6 and 7 (median of 5
      calls on the host clock, with the min and max);
  15. one Engine.msm call at 2^20 under torch.profiler: device busy share
@@ -54,7 +60,8 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      K1 and K2 must each have launched in that call (counts reset just
      before it and read just after);
  19. K10 at 32768 lanes, width 4: its one launch counted, equal to its
-     plain version and, canonically, to K4 on the same windows;
+     plain version's canonical limbs and, after encoding, to K4 on the same
+     windows;
  20. rate: keygen ops/s (median of 11 calls, with the min and max), and
      one Engine.keygen call under torch.profiler;
  21. K9 (one group of 4 windows, fold 0 and 2), K11 (one window) and K12
@@ -76,6 +83,9 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      equals the oracle's, with its launches, times and peak memory;
  25. msm_with_checkpoints at 2^16 points in 4 blocks, and the same job
      resumed from its file after block 2, equal to the one-shot MSM.
+Kernels on the 8 x 32-bit core (K3, K4, K5, K7, K9-K12) write canonical
+limbs and are held against their plain versions' canonical limbs; the
+others limb for limb.
 The line before the last is a JSON object with one entry per kernel, with
 its bound (the larger of its bytes over the memory rate and its field
 multiplies and squares, priced at the 8 x 32 core's word products, over
@@ -140,6 +150,8 @@ OPS_22X12 = (22 * 22 + 12 * (23 + 14 + 5), 22 + 231 + 12 * (23 + 14 + 5))
 PT_BYTES = 4 * 22 * 4                           # one extended point
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 IMAD_PER_SM_CLOCK = 64    # 32-bit integer multiply-add, compute capability 9.0
+ISSUE_PER_SM_CLOCK = 4    # warp instructions: four schedulers an SM
+CORE_KERNELS = ("k_bucket_accum", "k_padd", "k_ladder")   # on field32.cuh
 
 # Reference vectors: compressed k*B for k = 0..15, and the Elligator sage
 # vector (input bytes, expected point as 52-bit limbs).
@@ -216,6 +228,7 @@ class Roofline:
     for ``bound_ms_22x12``."""
 
     def __init__(self, sms: int, max_sm_mhz: float):
+        self.sms, self.max_sm_mhz = sms, max_sm_mhz
         self.imad_per_s = sms * IMAD_PER_SM_CLOCK * max_sm_mhz * 1e6
 
     def __call__(self, work, nbytes: float) -> dict:
@@ -231,20 +244,108 @@ class Roofline:
                 "bound_ms_22x12": max(ops_ms(OPS_22X12), bytes_ms)}
 
 
-def sass_wide_products(lib_path, kernel: str) -> int:
-    """The IMAD.WIDE.U32 instructions (32 x 32 -> 64-bit products, with or
-    without carry-in) in the SASS of ``kernel`` in the built library
-    (cuobjdump -sass)."""
+def sass_counts(lib_path, kernel: str) -> dict[str, tuple[int, int, int]]:
+    """For each function of the built library whose (mangled) name holds
+    ``kernel``: (IMAD.WIDE.U32 instructions -- 32 x 32 -> 64-bit products
+    --, IMAD.HI instructions -- the high halves of the multiply's PTX
+    carry chains --, all instructions) in its SASS (cuobjdump -sass)."""
+    import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
-    bodies = [f for f in sass.split("Function : ")[1:]
-              if f.split(None, 1)[0].find(kernel) >= 0]
-    if len(bodies) != 1:
-        raise AssertionError(f"{kernel} not found once in the SASS of {lib_path}")
-    return bodies[0].count("IMAD.WIDE.U32")
+    counts = {}
+    for body in sass.split("Function : ")[1:]:
+        name = body.split(None, 1)[0]
+        if kernel in name:
+            instructions = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", body))
+            counts[name] = (body.count("IMAD.WIDE.U32"), body.count("IMAD.HI"),
+                            instructions)
+    if not counts:
+        raise AssertionError(f"{kernel} not found in the SASS of {lib_path}")
+    return counts
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """ptxas -v's registers, spill stores and loads and stack frame of each
+    compiled entry function, by mangled name."""
+    import re
+
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            report.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            report[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            report.setdefault(name, {})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
+def mul_step_instructions(lib_path, kernel: str) -> int | None:
+    """Instructions in one step of the core's rolled multiply as the SASS
+    of ``kernel`` holds it: the shortest body of a loop (a branch back)
+    that multiplies by -p^-1 mod 2^32 (0x12547e1b, the step's m); None if
+    there is none."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    steps = []
+    for body in sass.split("Function : ")[1:]:
+        if kernel not in body.split(None, 1)[0]:
+            continue
+        code = [(int(m[1], 16), m[2]) for m in
+                re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;\n]*);", body)]
+        for addr, op in code:
+            m = re.search(r"\bBRA(?:\.\S+)?\s+`?\(?0x([0-9a-f]+)", op)
+            if m and int(m[1], 16) < addr:
+                loop = [o for a, o in code if int(m[1], 16) <= a <= addr]
+                if sum("0x12547e1b" in o for o in loop) == 1:
+                    steps.append(len(loop))
+    return min(steps) if steps else None
+
+
+def mul_issue_ms(step: int | None, muls: float, sms: int,
+                 max_sm_mhz: float) -> float | None:
+    """The time the card would take to issue the rolled multiplies alone:
+    ``muls`` field multiplies (a square is one) of 8 steps of ``step``
+    instructions, a warp instruction for 32 lanes, four warp instructions
+    an SM a clock.  A lower bound on the issue time (the additions,
+    selections and conversions come on top): a kernel far above it waits
+    on latency or memory, not on issue."""
+    if step is None:
+        return None
+    return round(muls * 8 * step / 32
+                 / (sms * ISSUE_PER_SM_CLOCK * max_sm_mhz * 1e6) * 1e3, 4)
+
+
+def canonical(point):
+    """A point tuple of [..., 22] limbs -> canonical limbs (the kernels on the
+    8 x 32-bit core write those; their plain versions leave semi limbs)."""
+    from zerocaf_tpu_torch.ops import limb
+
+    return tuple(limb.canonical(c, limb.FIELD) for c in point)
+
+
+def muls(work) -> float:
+    """Field multiplies that the 8 x 32 core's kernels run for ``work``
+    (field multiplies, squares): the core squares by its multiply (the
+    bound prices a square at the 76 word products it needs at least)."""
+    return float(work[0]) + float(work[1])
 
 
 def max_abs_err(got, want) -> int:
@@ -296,10 +397,21 @@ def main() -> None:
         if any(k in line for k in ("Compiling entry", "registers",
                                    "spill stores", "bytes stack frame")):
             phase("ptxas", line.strip())
-    wide = sass_wide_products(paths["msm_kernels"], "k_bucket_accum")
-    phase("sass", f"k_bucket_accum: {wide} IMAD.WIDE.U32 (its loop's 10 field "
-          f"multiplies take 10 x 96 = 960 by design; the rest convert to limbs "
-          f"and address)")
+    report = ptxas_report(log)
+    for kernel in CORE_KERNELS:
+        stem = "msm_kernels" if kernel == "k_bucket_accum" else "field_kernels"
+        for name, counts in sass_counts(paths[stem], kernel).items():
+            r = report.get(name, {})
+            phase("core kernels", f"{name}: {r.get('registers')} registers, "
+                  f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} "
+                  f"B spill loads, {r.get('stack')} B stack; SASS {counts[0]} "
+                  f"IMAD.WIDE.U32 and {counts[1]} IMAD.HI of {counts[2]} "
+                  f"instructions")
+    steps = {k: mul_step_instructions(paths["field_kernels"], k)
+             for k in ("k_ladder", "k_padd")}
+    phase("core kernels", f"one step of the rolled multiply: {steps['k_ladder']} "
+          f"instructions in k_ladder, {steps['k_padd']} in k_padd (8 steps a "
+          f"multiply)")
     phase("bound basis", f"a field multiply {OPS_8X32[0]} and a square "
           f"{OPS_8X32[1]} word products on the 8 x 32 core (22 x 12 algebra: "
           f"{OPS_22X12[0]} and {OPS_22X12[1]} multiply-adds)")
@@ -313,7 +425,7 @@ def main() -> None:
     # 3. kernels against their plain versions ------------------------------
     results = {}
 
-    def record(wrapper, err, ms=None, plain_ms=None, bound=None):
+    def record(wrapper, err, ms=None, plain_ms=None, bound=None, **extra):
         r = results.setdefault(wrapper.__name__, {
             "max_abs_err": 0, "ms": None, "plain_ms": None, "bound_ms": None,
             "bound_by": None, "library_ms": None, "bound_ms_22x12": None})
@@ -321,6 +433,7 @@ def main() -> None:
         if ms is not None:
             r["ms"], r["plain_ms"] = ms, plain_ms
             r.update(bound)
+        r.update(extra)
 
     for spec in (limb.FIELD, limb.SCALAR):
         a = rand_elems(MUL_LANES, spec)
@@ -377,16 +490,20 @@ def main() -> None:
     )
     for wrapper, ref, win, width, label, per_lane in ladder_cases:
         got = wrapper(pts, win, width)
-        want = ref(pts, win, width)
+        want = canonical(ref(pts, win, width))
         err = max_abs_err(got, want)
         ms = cuda_ms(lambda: wrapper(pts, win, width), 3)
         plain = cuda_ms(lambda: ref(pts, win, width), 1)
-        phase(label, f"{BATCH} lanes: max_abs_err {err} (tolerance {TOLERANCE}), "
-              f"kernel {ms:.3f} ms, plain {plain:.3f} ms")
+        bound = roof(BATCH * per_lane, BATCH * (2 * PT_BYTES + 4 * win.shape[-1]))
+        issue = mul_issue_ms(steps["k_ladder"], BATCH * muls(per_lane), sms,
+                             max_mhz)
+        phase(label, f"{BATCH} lanes: max_abs_err {err} (tolerance {TOLERANCE}, "
+              f"canonical limbs), kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+              f"{bound['bound_ms']:.3f} ms by {bound['bound_by']}, its "
+              f"multiplies at the issue rate {issue} ms")
         if err > TOLERANCE:
             raise AssertionError(f"{label} differs from its plain version")
-        record(wrapper, err, ms, plain,
-               roof(BATCH * per_lane, BATCH * (2 * PT_BYTES + 4 * win.shape[-1])))
+        record(wrapper, err, ms, plain, bound)
     torch.cuda.synchronize()
 
     # 4. vectors -----------------------------------------------------------
@@ -481,9 +598,9 @@ def main() -> None:
     phase("rates", f"{card}: {', '.join(rates)}, ladder {BATCH / k3_ms * 1e3:.0f} "
           f"mults/s, signed windowed {BATCH / k4_ms * 1e3:.0f} mults/s, batch {BATCH}")
 
-    msm_main, msm_ctx = msm_phases(dev, rng, roof, card, pts, record)
+    msm_main, msm_ctx = msm_phases(dev, rng, roof, card, pts, record, steps)
     counts.update(msm_main)
-    counts.update(keygen_phases(dev, rng, roof, card, pts, s, record))
+    counts.update(keygen_phases(dev, rng, roof, card, pts, s, record, steps))
     counts.update(msm_option_phases(dev, roof, card, msm_ctx, record))
     counts.update(sharded_phases(dev, card, msm_ctx))
     checkpoint_phase(dev, msm_ctx)
@@ -556,11 +673,12 @@ def k8_work(nwin: int, nb: int, c: int) -> tuple[float, float]:
     return work, nwin * nb * PT_BYTES + PT_BYTES
 
 
-def msm_phases(dev, rng, roof, card, ecdh_pts, record) -> dict[str, int]:
+def msm_phases(dev, rng, roof, card, ecdh_pts, record, steps) -> dict[str, int]:
     """Phases 9-15: K5, K7 and K8 against their plain versions, Engine.msm
     at 2^20 against the oracle, the route cross-check, the rates and the
     profile.  Returns the launch counts of K5, K7 and K8 in the three
-    Engine.msm calls of phase 11, the MSM main path."""
+    Engine.msm calls of phase 11, the MSM main path.  steps: phase 2's
+    instructions in a step of the rolled multiply, by kernel."""
     import importlib
 
     import zerocaf_tpu_torch as zt
@@ -576,11 +694,11 @@ def msm_phases(dev, rng, roof, card, ecdh_pts, record) -> dict[str, int]:
     q = tuple(torch.roll(c, 1, 0) for c in p)
     p = (torch.cat([-p[0][:BATCH], p[0][BATCH:]]), p[1], p[2],
          torch.cat([-p[3][:BATCH], p[3][BATCH:]]))
-    err = max_abs_err(fk.padd_tiled(p, q), fk.padd_tiled_ref(p, q))
+    err = max_abs_err(fk.padd_tiled(p, q), canonical(fk.padd_tiled_ref(p, q)))
     ms = cuda_ms(lambda: fk.padd_tiled(p, q), 20)
     plain = cuda_ms(lambda: fk.padd_tiled_ref(p, q), 3)
     phase("K5 padd_tiled", f"{MUL_LANES} lanes: max_abs_err {err} (tolerance "
-          f"{TOLERANCE}), kernel {ms:.4f} ms, plain {plain:.4f} ms")
+          f"{TOLERANCE}, canonical limbs), kernel {ms:.4f} ms, plain {plain:.4f} ms")
     if err > TOLERANCE:
         raise AssertionError("K5 differs from its plain version")
     record(fk.padd_tiled, err)           # timed at the main path's shape below
@@ -723,14 +841,37 @@ def msm_phases(dev, rng, roof, card, ecdh_pts, record) -> dict[str, int]:
     a = tuple(arr[:, :half, j] for j in range(4))
     b = tuple(arr[:, half:, j] for j in range(4))
     n5 = arr.shape[0] * half
-    err5 = max_abs_err(fk.padd_tiled(a, b), padd_ref_rows(fk, a, b))
+    err5 = max_abs_err(fk.padd_tiled(a, b), canonical(padd_ref_rows(fk, a, b)))
     ms5 = cuda_ms(lambda: fk.padd_tiled(a, b), 3)
     plain5 = cuda_ms(lambda: padd_ref_rows(fk, a, b), 1)
     if err5 > TOLERANCE:
         raise AssertionError("K5 differs from its plain version on the first "
                              "lane-reduce round")
     b5 = roof(n5 * PADD, 3 * n5 * PT_BYTES)
+    issue5 = mul_issue_ms(steps["k_padd"], n5 * muls(PADD + 2 * MUL), roof.sms,
+                          roof.max_sm_mhz)
     record(fk.padd_tiled, err5, ms5, plain5, b5)
+    # K5 on every round of the lane reduction (parallel/msm.py:_lane_reduce)
+    v = tuple(arr[:, :, j] for j in range(4))
+    rounds = []
+    while v[0].shape[1] > 1:
+        h = v[0].shape[1] // 2
+        ra, rb = tuple(c[:, :h] for c in v), tuple(c[:, h:] for c in v)
+        n_r = ra[0].shape[0] * h
+        rounds.append((n_r, cuda_ms(lambda: fk.padd_tiled(ra, rb), 3),
+                       roof(n_r * PADD, 3 * n_r * PT_BYTES)["bound_ms"]))
+        v = fk.padd_tiled(ra, rb)
+    cost5 = sum(ms - bnd for _, ms, bnd in rounds)
+    record(fk.padd_tiled, 0, rounds_lanes=[r[0] for r in rounds],
+           rounds_ms=[r[1] for r in rounds],
+           rounds_bound_ms=[r[2] for r in rounds], cost_per_call=cost5)
+    phase("K5 lane-reduce rounds", f"{len(rounds)} rounds of one Engine.msm call "
+          f"at {MSM_BATCH}: " + ", ".join(f"{n_r} lanes {ms:.4f} ms (bound "
+                                          f"{bnd:.4f})" for n_r, ms, bnd in rounds)
+          + f"; total {sum(r[1] for r in rounds):.3f} ms, sum of (ms - bound) "
+          f"{cost5:.3f}; the first round's 12 multiplies a lane at the issue "
+          f"rate {issue5} ms")
+    del v, ra, rb
     red = tmsm._lane_reduce(tuple(arr[:, :, j] for j in range(4)))
     tables = tuple(t.reshape(-1, nb, 22)[:nwin].contiguous() for t in red)
     ms8 = cuda_ms(lambda: mk.combine_tables(tables, nb, nwin, MSM_C), 5)
@@ -761,12 +902,12 @@ def msm_phases(dev, rng, roof, card, ecdh_pts, record) -> dict[str, int]:
                         oracle_wire=oracle_wire)
 
 
-def keygen_phases(dev, rng, roof, card, pts, s, record) -> dict[str, int]:
+def keygen_phases(dev, rng, roof, card, pts, s, record, steps) -> dict[str, int]:
     """Phases 16-20: the comb table, K6 against its plain version,
     Engine.keygen at batch 32768 against the ladder and the oracle, K10,
     and the keygen rate.  pts and s are phase 3's random points and
-    scalars.  Returns the launches of K6 in the keygen call (the keygen
-    main path) and of K10 in its own call."""
+    scalars, steps phase 2's multiply steps.  Returns the launches of K6 in the
+    keygen call (the keygen main path) and of K10 in its own call."""
     import zerocaf_tpu_torch as zt
     from zerocaf_tpu_torch import oracle as o
     from zerocaf_tpu_torch.models import edwards as ed
@@ -858,17 +999,20 @@ def keygen_phases(dev, rng, roof, card, pts, s, record) -> dict[str, int]:
     got = fk.scalar_mul_windowed_fused(pts, win4, 4)
     torch.cuda.synchronize()
     k10 = fk.scalar_mul_windowed_fused.launches
-    err = max_abs_err(got, fk.scalar_mul_windowed_stepped_ref(pts, win4, 4))
+    err = max_abs_err(got, canonical(fk.scalar_mul_windowed_stepped_ref(pts, win4, 4)))
     same_k4 = torch.equal(ri._compress(got),
                           ri._compress(fk.scalar_mul_windowed_signed(pts, win4, 4)))
     ms = cuda_ms(lambda: fk.scalar_mul_windowed_fused(pts, win4, 4), 3)
     plain = cuda_ms(lambda: fk.scalar_mul_windowed_stepped_ref(pts, win4, 4), 1)
     k10_lane = 14 * PADD + 15 * MUL + 63 * (3 * PDBL + PDBL_T + MADD)
     bound = roof(BATCH * k10_lane, BATCH * (2 * PT_BYTES + 4 * 63))
+    issue = mul_issue_ms(steps["k_ladder"], BATCH * muls(k10_lane), roof.sms,
+                         roof.max_sm_mhz)
     phase("K10 scalar_mul_windowed_fused", f"width 4, {BATCH} lanes: {k10} launch, "
-          f"max_abs_err {err} (tolerance {TOLERANCE}), equal to K4 after encoding: "
-          f"{same_k4}, kernel {ms:.3f} ms, plain {plain:.1f} ms, bound "
-          f"{bound['bound_ms']:.3f} ms by {bound['bound_by']}")
+          f"max_abs_err {err} (tolerance {TOLERANCE}, canonical limbs), equal to "
+          f"K4 after encoding: {same_k4}, kernel {ms:.3f} ms, plain {plain:.1f} ms, "
+          f"bound {bound['bound_ms']:.3f} ms by {bound['bound_by']}, its "
+          f"multiplies at the issue rate {issue} ms")
     if err > TOLERANCE or not same_k4 or k10 != 1:
         raise AssertionError("K10 differs from its plain version or from K4")
     record(fk.scalar_mul_windowed_fused, err, ms, plain, bound)
@@ -921,6 +1065,7 @@ def msm_option_phases(dev, roof, card, ctx, record) -> dict[str, int]:
 
     import zerocaf_tpu_torch as zt
     from zerocaf_tpu_torch.models import ristretto as ri
+    from zerocaf_tpu_torch.ops import limb
     from zerocaf_tpu_torch.ops.kernels import msm_kernels as mk
 
     tmsm = importlib.import_module("zerocaf_tpu_torch.parallel.msm")
@@ -950,6 +1095,8 @@ def msm_option_phases(dev, roof, card, ctx, record) -> dict[str, int]:
             for fold in folds:
                 got = call(fn, pst, d, nb, k, lanes, fold)
                 want, plain = host_ms(lambda: call(ref, pst, d, nb, k, lanes, fold))
+                if fold:                       # K5's rounds: canonical limbs
+                    want = limb.canonical(want, limb.FIELD)
                 err = max_abs_err(got, want)
                 del got, want
                 msg = (f"{n} points, c {MSM_C}, k {k}, {lanes} lanes, fold {fold}: "
@@ -975,7 +1122,8 @@ def msm_option_phases(dev, roof, card, ctx, record) -> dict[str, int]:
         # there is phase 13's ten seconds again)
         if n == MSM_CHECK:
             err = max_abs_err(mk.bucket_accum_all(pst, dig, nb, lanes, FOLD_CHECKED),
-                              mk.bucket_accum_all_ref(pst, dig, nb, lanes, FOLD_CHECKED))
+                              limb.canonical(mk.bucket_accum_all_ref(
+                                  pst, dig, nb, lanes, FOLD_CHECKED), limb.FIELD))
             phase("K7 bucket_accum_all", f"{n} points, fold {FOLD_CHECKED}: "
                   f"max_abs_err {err} (tolerance {TOLERANCE})")
             if err > TOLERANCE:

@@ -1,13 +1,16 @@
 """PyTorch port: host rehearsal of the 8 x 32-bit field core of
-``k_bucket_accum`` (``zerocaf_tpu_torch/csrc/field32.cuh``).
+``k_bucket_accum``, ``k_padd`` and ``k_ladder``
+(``zerocaf_tpu_torch/csrc/field32.cuh``) and of the ladder's per-lane body
+(``csrc/ladder32.cuh``).
 
-The header is plain C++ whose functions are all ``__host__ __device__
-__forceinline__``.  Here ``g++ -std=c++20 -O1`` compiles it for the host,
-through a shim that defines those qualifiers away, into a small shared
+The headers are plain C++ whose functions are all ``__host__ __device__
+__forceinline__``.  Here ``g++ -std=c++20 -O1`` compiles them for the host,
+through a shim that defines those qualifiers away, into one small shared
 library that ``ctypes`` loads; the tests hold its multiply, square, add,
-subtract, the conversions across the 22 x 12-bit boundary and one
-``padd_ext`` (with the curve constant that ``k_bucket_accum`` reads)
-against the port's oracle.  They skip where there is no ``g++``."""
+subtract, the conversions across the 22 x 12-bit boundary, the point
+formulas (``padd_ext``, ``pdbl``, ``madd``, ``to_niels``, with the curve
+constants the kernels read) and the ladder against the port's oracle and
+its plain versions.  They skip where there is no ``g++``."""
 
 import ctypes
 import re
@@ -17,8 +20,11 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from zerocaf_tpu_torch import oracle as o
+from zerocaf_tpu_torch.ops import limb as tl
+from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
 
 CSRC = Path(__file__).resolve().parents[1] / "zerocaf_tpu_torch" / "csrc"
 R = 1 << 256
@@ -28,13 +34,45 @@ SHIM = """
 #define __host__
 #define __device__
 #define __forceinline__ inline
+#define __constant__
 """
 
 BINDINGS = r"""
 #include "shim.h"
-#include "field32.cuh"
+#include "ladder32.cuh"
 
 using namespace zc32;
+
+// Signed lazy 22 x 12 limbs of a point [4][22] -> the core's form, and
+// canonical limbs back.
+static Pt pt_in(const int32_t* x) {
+  Pt P;
+  Fe* cs[4] = {&P.X, &P.Y, &P.Z, &P.T};
+  for (int c = 0; c < 4; ++c) {
+    int32_t v[NL];
+    for (int k = 0; k < NL; ++k) v[k] = x[NL * c + k];
+    *cs[c] = to_mont(from_limbs(v));
+  }
+  return P;
+}
+static void pt_out(int32_t* x, Pt& P) {
+  for (int c = 0; c < 4; ++c) {
+    int32_t v[NL];
+    to_limbs(coord(P, c), v);
+    for (int k = 0; k < NL; ++k) x[NL * c + k] = v[k];
+  }
+}
+
+// One lane's table: an array [entry][word].
+struct HostTable {
+  uint32_t* base;
+  void get(int entry, int q, uint32_t (&v)[4]) const {
+    for (int j = 0; j < 4; ++j) v[j] = base[entry * NIELS_WORDS + 4 * q + j];
+  }
+  void put(int entry, int q, const uint32_t (&v)[4]) const {
+    for (int j = 0; j < 4; ++j) base[entry * NIELS_WORDS + 4 * q + j] = v[j];
+  }
+};
 
 static Fe get(const uint32_t* p) {
   Fe r;
@@ -85,6 +123,53 @@ void f32_padd(const uint32_t* p, const uint32_t* q, const uint32_t* d,
     put(out + 32 * i + 16, Rr.Z); put(out + 32 * i + 24, Rr.T);
   }
 }
+void f32_consts(uint32_t* out) {
+  put(out, c_d32);
+  put(out + 8, c_d2_32);
+}
+// Point formulas on points given as limbs [n][4][22], results canonical:
+// op 0 pdbl with T, 1 pdbl without T, 2 madd(a, b), 3 to_niels(a),
+// 4 padd_ext(a, b) in Montgomery form, 5 k_padd's lane: padd_plain on
+// plain values, read coordinate by coordinate.
+void f32_points(int op, const int32_t* a, const int32_t* b, int32_t* out,
+                int n) {
+  for (int i = 0; i < n; ++i) {
+    if (op == 5) {
+      const auto ld = [&](int o, int c) {
+        int32_t v[NL];
+        for (int k = 0; k < NL; ++k) v[k] = (o ? b : a)[88 * i + NL * c + k];
+        return from_limbs(v);
+      };
+      Fe efgh[4];
+      padd_plain(ld, c_d32, efgh);
+      for (int c = 0; c < 4; ++c) {
+        int32_t v[NL];
+        pack_limbs(padd_plain_coord(efgh, c), v);
+        for (int k = 0; k < NL; ++k) out[88 * i + NL * c + k] = v[k];
+      }
+      continue;
+    }
+    Pt P = pt_in(a + 88 * i), Q = pt_in(b + 88 * i);
+    if (op == 0 || op == 1) pdbl(P, op == 0);
+    if (op == 2) madd(P, Q);
+    if (op == 3) to_niels(P, P, c_d2_32);
+    if (op == 4) padd_ext(P, P, Q, c_d32);
+    pt_out(out + 88 * i, P);
+  }
+}
+// k_ladder's lanes: points [n][4][22] limbs, windows [n][nwin] -> k*P as
+// canonical limbs [n][4][22].
+void f32_ladder(const int32_t* pts, const int32_t* win, int nwin, int width,
+                int is_signed, int32_t* out, int n) {
+  static uint32_t tbl[17 * NIELS_WORDS];
+  for (int i = 0; i < n; ++i) {
+    Pt P = pt_in(pts + 88 * i), Q;
+    const int32_t* wl = win + nwin * i;
+    ladder_lane(Q, P, [&](int w) { return wl[w]; }, nwin, width, is_signed,
+                HostTable{tbl}, c_d32, c_d2_32);
+    pt_out(out + 88 * i, Q);
+  }
+}
 }
 """
 
@@ -109,6 +194,12 @@ def lib(tmp_path_factory):
         fn = getattr(lib, name)
         fn.argtypes = [p] * nargs + [ctypes.c_int]
         fn.restype = None
+    i = ctypes.c_int
+    for name, argtypes in (("f32_consts", [p]),
+                           ("f32_points", [i, p, p, p, i]),
+                           ("f32_ladder", [p, p, i, i, i, p, i])):
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = None
     return lib
 
 
@@ -136,16 +227,31 @@ def _mont(vals):
     return _words([v % P * R % P for v in vals])
 
 
-def _kernel_d():
-    """The words of ``c_d32``, the curve constant in msm_kernels.cu."""
-    src = (CSRC / "msm_kernels.cu").read_text()
-    body = re.search(r"__constant__ zc32::Fe c_d32 = \{\{([^}]*)\}\};", src)[1]
+def _kernel_const(name="c_d32"):
+    """The words of a curve constant of field32.cuh (``c_d32``, d; or
+    ``c_d2_32``, 2d), as the source writes them."""
+    src = (CSRC / "field32.cuh").read_text()
+    body = re.search(rf"__constant__ Fe {name} = \{{\{{([^}}]*)\}}\}};", src)[1]
     return np.array([int(w.strip().rstrip("u"), 16) for w in body.split(",")],
                     dtype=np.uint32)
 
 
+def _kernel_d():
+    return _kernel_const("c_d32")
+
+
 def test_kernel_d_is_d_in_montgomery_form():
     assert _ints([_kernel_d()]) == [o.EDWARDS_D * R % P]
+
+
+def test_kernel_2d_is_2d_in_montgomery_form(lib):
+    """2d R mod p, as the source writes it and as the compiled header holds
+    it (beside d)."""
+    assert _ints([_kernel_const("c_d2_32")]) == [2 * o.EDWARDS_D * R % P]
+    got = np.zeros(16, dtype=np.uint32)
+    lib.f32_consts(_ptr(got))
+    assert _ints(got.reshape(2, 8)) == [o.EDWARDS_D * R % P,
+                                        2 * o.EDWARDS_D * R % P]
 
 
 EDGES = [0, 1, 2, P - 1, P - 2, (1 << 252) - 1, 1 << 252, R % P, R * R % P]
@@ -223,3 +329,143 @@ def test_padd_ext_matches_the_oracle(lib):
         E = ((X1 + Y1) * (X2 + Y2) - A - B) % P
         F, G, H = (Dd - Cc) % P, (Dd + Cc) % P, (A + B) % P
         assert r == (E * F % P, G * H % P, F * G % P, E * H % P)
+
+
+def _lazy_point_limbs(rng, pt):
+    """An extended point as signed lazy limbs [4, 22], as the limb engine
+    hands them to the kernels: each coordinate's canonical limbs, its
+    negative's limbs negated, or either with carries moved between limbs."""
+    rows = []
+    for v in pt:
+        form = int(rng.integers(0, 4))
+        limbs = np.array(o.int_to_limbs((P - v) % P if form & 1 else v), np.int64)
+        if form & 1:
+            limbs = -limbs
+        if form & 2:                         # move r 2^12 down from limb k+1
+            r = rng.integers(-3, 4, 21)
+            limbs[:21] += r * 4096
+            limbs[1:] -= r
+        rows.append(limbs)
+    return np.array(rows).astype(np.int32)
+
+
+def _coords_of(rows):
+    """[n, 4, 22] limbs -> the 4-tuple of [n, 22] tensors."""
+    return tuple(torch.tensor(np.ascontiguousarray(rows[:, c])) for c in range(4))
+
+
+def _canonical_rows(coords):
+    """A 4-tuple of [n, 22] tensors -> canonical limbs [n, 4, 22]."""
+    return np.stack([tl.canonical(c, tl.FIELD).numpy() for c in coords], axis=1)
+
+
+def _point_of(row):
+    return tuple(o.limbs_to_int(r) % P for r in row)
+
+
+@pytest.fixture(scope="module")
+def lazy_points():
+    """Random group points scaled by random Z, the identity, and a point
+    with its negative, each as signed lazy limbs; (limbs a, limbs b, the
+    oracle points a, b)."""
+    rng = np.random.default_rng(84)
+    pts = [o.scalar_mul(o.BASEPOINT, int(k)) for k in rng.integers(1, 1 << 62, 8)]
+    pts = [tuple(c * int(z) % P for c in p)
+           for p, z in zip(pts, rng.integers(2, 1 << 62, 8))]
+    a = pts + [o.IDENTITY, pts[0]]
+    b = pts[::-1] + [pts[1], o.point_neg(pts[0])]
+    la = np.stack([_lazy_point_limbs(rng, p) for p in a])
+    lb = np.stack([_lazy_point_limbs(rng, p) for p in b])
+    return la, lb, a, b
+
+
+def _points(lib, op, la, lb):
+    out = np.zeros(la.shape, dtype=np.int32)
+    lib.f32_points(op, _ptr(np.ascontiguousarray(la)),
+                   _ptr(np.ascontiguousarray(lb)), _ptr(out), la.shape[0])
+    return out
+
+
+@pytest.mark.parametrize("op", ["pdbl", "pdbl_no_t", "madd", "to_niels", "padd",
+                                "padd_plain"])
+def test_point_formulas_match_the_oracle_and_plain(lib, lazy_points, op):
+    """The core's pdbl, madd, to_niels, padd_ext and padd_plain (k_padd's
+    lane) on signed lazy limbs: canonical limbs equal to the port's plain
+    versions (the 22 x 12 algebra, canonicalized) and, coordinate for
+    coordinate, to the oracle's formula."""
+    la, lb, a, b = lazy_points
+    ta, tb = _coords_of(la), _coords_of(lb)
+    d2 = o.fmul(2, o.EDWARDS_D)
+    if op in ("pdbl", "pdbl_no_t"):
+        with_t = op == "pdbl"
+        got = _points(lib, 0 if with_t else 1, la, la)
+        plain = fk._pdbl_block(ta, with_t=with_t)
+        want = [o.point_double(p) for p in a]
+        if not with_t:                       # T is left as it was
+            plain = plain + (ta[3],)
+            want = [w[:3] + (p[3] % P,) for w, p in zip(want, a)]
+    elif op == "to_niels":
+        got = _points(lib, 3, la, la)
+        plain = fk._niels_table(ta, 2)[1]
+        want = [(o.fadd(Y, X), o.fsub(Y, X), Z, o.fmul(T, d2)) for X, Y, Z, T in a]
+    elif op == "madd":
+        niels = _points(lib, 3, lb, lb)      # b in Niels form, canonical
+        got = _points(lib, 2, la, niels)
+        plain = fk._madd_block(ta, _coords_of(niels))
+        want = []
+        for (X1, Y1, Z1, T1), (ep, em, ez, et) in zip(a, (_point_of(r) for r in niels)):
+            PP, MM = (Y1 + X1) * ep % P, (Y1 - X1) * em % P
+            TT, ZZ2 = T1 * et % P, 2 * Z1 * ez % P
+            E, F, G, H = PP - MM, ZZ2 - TT, ZZ2 + TT, PP + MM
+            want.append((E * F % P, G * H % P, F * G % P, E * H % P))
+    else:
+        got = _points(lib, 4 if op == "padd" else 5, la, lb)
+        plain = fk.padd_tiled_ref(ta, tb)
+        want = [o.point_add(p, q) for p, q in zip(a, b)]
+    assert np.array_equal(got, _canonical_rows(plain))
+    assert [_point_of(r) for r in got] == [tuple(c % P for c in w) for w in want]
+    if op.startswith("padd"):
+        assert all(o.point_eq(_point_of(r), o.point_add(p, q))
+                   for r, p, q in zip(got, a, b))
+
+
+def _recoded(windows, width):
+    """The signed digits' value, top carry dropped, as k_ladder recodes."""
+    h, full, carry, k = 1 << (width - 1), 1 << width, 0, 0
+    for i, w in enumerate(windows):
+        d = int(w) + carry
+        carry = int(d >= h)
+        k += (d - carry * full) << (width * i)
+    return k
+
+
+@pytest.mark.parametrize("width,signed", [(1, False), (4, False), (4, True)],
+                         ids=["bits", "unsigned_w4", "signed_w4"])
+def test_ladder_lanes_match_plain_and_oracle(lib, lazy_points, width, signed):
+    """k_ladder's per-lane body (ladder32.cuh) for a few lanes: canonical
+    limbs equal to the plain version's, and k P equal to the oracle's.  The
+    signed case adds a non-canonical window vector (every window 15), whose
+    recode drops its top carry: the result is -P, as in the JAX package."""
+    la, _, a, _ = lazy_points
+    la, a = la[:4], a[:4]
+    rng = np.random.default_rng(85 + width + signed)
+    nwin = 250 if width == 1 else 63
+    ks = [o.R - 1, 0] + [int.from_bytes(rng.bytes(32), "little") % o.R for _ in a[2:]]
+    win = np.array([[(k >> (width * i)) & ((1 << width) - 1) for i in range(nwin)]
+                    for k in ks], dtype=np.int32)
+    if signed:
+        win[-1] = 15
+    out = np.zeros(la.shape, dtype=np.int32)
+    lib.f32_ladder(_ptr(np.ascontiguousarray(la)), _ptr(win), nwin, width,
+                   int(signed), _ptr(out), len(a))
+    ref = (fk.scalar_mul_windowed_signed_ref if signed
+           else fk.scalar_mul_windowed_stepped_ref)
+    plain = ref(_coords_of(la), torch.tensor(win), width)
+    assert np.array_equal(out, _canonical_rows(plain))
+    for row, p, w in zip(out, a, win):
+        k = _recoded(w, width) if signed else sum(int(x) << (width * i)
+                                                  for i, x in enumerate(w))
+        want = o.scalar_mul(p, k) if k >= 0 else o.point_neg(o.scalar_mul(p, -k))
+        assert o.point_eq(_point_of(row), want)
+    if signed:
+        assert _recoded(win[-1], width) == -1

@@ -3,8 +3,11 @@
 On the CPU the plain PyTorch versions are held against the JAX package's
 plain paths (which tests/test_pallas.py pins bit-exact to the Pallas
 kernels) and the oracle.  The CUDA kernels are held against their plain
-versions, limb for limb, by the tests marked ``cuda``: they skip without a
-card.  Every comparison is exact (integer arithmetic)."""
+versions by the tests marked ``cuda``: they skip without a card.  K1 and K2
+compute in their plain versions' 22 x 12 limb algebra and are compared limb
+for limb; the ladders (K3, K4, K10) compute on the 8 x 32-bit core and
+write canonical limbs, compared with the plain versions' canonical limbs.
+Every comparison is exact (integer arithmetic)."""
 
 import jax
 import jax.numpy as jnp
@@ -263,8 +266,27 @@ def test_ladder_kernels_equal_plain(cuda, ladder_inputs, signed, width):
                  if signed else (fk.scalar_mul_windowed_stepped,
                                  fk.scalar_mul_windowed_stepped_ref))
     got, want = kern(pt, win, width), ref(pt, win, width)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, tl.canonical(w, tl.FIELD)) for g, w in zip(got, want))
     assert [r.tobytes() for r in tri._compress(got).cpu().numpy()] == d["want"]
+
+
+@pytest.mark.cuda
+def test_signed_kernel_drops_the_top_carry(cuda, ladder_inputs):
+    """K4 on window vectors whose signed recode carries out of the top
+    window (every window 15; the top window 8): the carry is dropped, as
+    in the plain version and the JAX package's _signed_recode, so the
+    first lane is -P."""
+    d = ladder_inputs
+    pt = tuple(torch.tensor(c, device=cuda) for c in d["coords"])
+    wins = d["wins"].copy()
+    wins[0] = 15
+    wins[1, -1] = 8
+    win = torch.tensor(wins, device=cuda)
+    got = fk.scalar_mul_windowed_signed(pt, win, 4)
+    want = fk.scalar_mul_windowed_signed_ref(pt, win, 4)
+    assert all(torch.equal(g, tl.canonical(w, tl.FIELD)) for g, w in zip(got, want))
+    neg = o.point_neg(tuple(o.limbs_to_int(c[0]) for c in d["coords"]))
+    assert _wire(tuple(g[:1].cpu() for g in got)) == [o.ristretto_compress(neg)]
 
 
 @pytest.mark.cuda
@@ -276,5 +298,5 @@ def test_fused_kernel_equals_plain(cuda, ladder_inputs):
     got = fk.scalar_mul_windowed_fused(pt, win, 4)
     assert fk.scalar_mul_windowed_fused.launches == before + 1
     want = fk.scalar_mul_windowed_stepped_ref(pt, win, 4)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, tl.canonical(w, tl.FIELD)) for g, w in zip(got, want))
     assert [r.tobytes() for r in tri._compress(got).cpu().numpy()] == d["want"]

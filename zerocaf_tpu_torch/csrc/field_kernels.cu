@@ -5,13 +5,19 @@
 // Every launcher enqueues on the stream it is given and returns
 // cudaGetLastError().
 //
-// Layout: public tensors are lane-major [n][22] int32 and are read as they
-// are (not coalesced; acceptable at this stage).  Per-lane tables live in a
-// global scratch buffer that the wrapper allocates, limb-major with the lane
-// innermost -- [entry][coord][limb][n] -- so a warp's table reads coalesce.
-// Each kernel loops over all windows or digits inside one launch: the TPU's
-// split into a table kernel and a per-step kernel existed only for its
-// compiler.
+// Two field cores.  k_padd (K5) and k_ladder (K3, K4, K10) compute on the
+// 8 x 32-bit Montgomery core of field32.cuh (ladder32.cuh holds the
+// ladder's per-lane body): they convert their 22 x 12-bit inputs at entry,
+// and write canonical limbs, equal to their plain versions' results after
+// canonicalization.  k_mul, k_pow and k_comb keep the 22 x 12-bit limbs of
+// field.cuh and agree with their plain versions limb for limb.
+//
+// Layout: public tensors are lane-major [n][22] int32.  Per-lane tables
+// live in a global scratch buffer that the wrapper allocates, with the lane
+// innermost -- k_pow's [entry][limb][n], k_ladder's [entry][16-byte
+// piece][n] -- so a warp's table reads coalesce.  Each kernel loops over
+// all windows or digits inside one launch: the TPU's split into a table
+// kernel and a per-step kernel existed only for its compiler.
 //
 // Constant time: the ladders read every table entry at every window and
 // blend with masks; no load is indexed by a secret digit.  The comb (K6) is
@@ -21,14 +27,19 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "field.cuh"
+#include "field32.cuh"
 #include "init.cuh"
+#include "ladder32.cuh"
 
 namespace zc {
 
 constexpr int BLOCK = 128;
+constexpr int CORE_MIN_BLOCKS = 4;     // k_padd's and k_ladder's blocks per SM
+constexpr int WARP = 32;
 constexpr int POW_ENTRIES = 16;        // a^0 .. a^15 (width-4 windows)
-constexpr int MAX_SIGNED_WINDOWS = 256;
 
 __device__ __forceinline__ int lane_index() {
   return blockIdx.x * blockDim.x + threadIdx.x;
@@ -93,113 +104,88 @@ __global__ void __launch_bounds__(BLOCK)
   fe_store(out, lane, r);
 }
 
+// 22 x 12-bit limbs of lane `lane` in a lane-major [n][22] plane -> the
+// core's Montgomery form, and canonical limbs back.
+__device__ __forceinline__ zc32::Fe core_load(const int32_t* base,
+                                              size_t lane) {
+  int32_t x[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) x[k] = base[lane * L + k];
+  return zc32::to_mont(zc32::from_limbs(x));
+}
+
+__device__ __forceinline__ void core_store(int32_t* base, size_t lane,
+                                           const zc32::Fe& a) {
+  int32_t x[L];
+  zc32::to_limbs(a, x);
+#pragma unroll
+  for (int k = 0; k < L; ++k) base[lane * L + k] = x[k];
+}
+
+// One lane's table in k_ladder's scratch buffer [entry][q][n][4]: the
+// 16-byte quarter q of an entry, lane innermost, so a warp's 16-byte reads
+// coalesce.
+struct LaneTable {
+  uint4* base;                         // the buffer + lane
+  size_t n;
+  __host__ __device__ void get(int entry, int q, uint32_t (&v)[4]) const {
+    const uint4 x = base[((size_t)entry * (zc32::NIELS_WORDS / 4) + q) * n];
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  }
+  __host__ __device__ void put(int entry, int q, const uint32_t (&v)[4]) const {
+    base[((size_t)entry * (zc32::NIELS_WORDS / 4) + q) * n] =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+};
+
 // K3, K4 and K10 -- replace field_kernels.py:scalar_mul_windowed_stepped
 // (_table_kernel, _step_kernel), scalar_mul_windowed_signed
 // (_step_kernel_signed, _signed_recode) and scalar_mul_windowed_fused
 // (_windowed_kernel: K10 is this kernel with is_signed = 0, entered by its
-// own wrapper).  k*P over nwin windows of `width`
-// bits, LSB-first in `win` ([n][nwin]).  Unsigned: a 2^width-entry Niels
-// table.  Signed: the windows are recoded per lane to digits in
-// [-2^(w-1), 2^(w-1)) (the top carry is dropped; it is zero for canonical
-// scalars) and the table holds entries 0..2^(w-1); the sign swaps Y+X with
-// Y-X and negates 2dT.  Per window, MSB-first: `width` doublings (T only on
-// the last), a one-hot read of every entry, one 8M addition.  Bound by
-// integer multiply-adds (~40 field multiplies per width-4 window) and by
-// register pressure: a point is 88 int32, the accumulator, the entry being
-// read and the temporaries of an addition do not fit in 255 registers, so
-// they live partly in local memory.
-__global__ void __launch_bounds__(BLOCK)
+// own wrapper).  k*P over nwin windows of `width` bits, LSB-first in `win`
+// ([n][nwin]), one thread a lane: zc32::ladder_lane (ladder32.cuh) on the
+// 8 x 32-bit core -- a per-lane Niels table of 2^width entries (unsigned)
+// or 2^(w-1)+1 (signed, recoded in the kernel with the top carry
+// dropped), then per window `width` doublings, a masked read of every
+// entry and one 8M addition.  P arrives as signed lazy 22 x 12 limbs
+// ([4][n][22]) and Q leaves as canonical limbs.
+//
+// Bound by integer multiply-adds: a width-4 window is 16 squares and 21
+// multiplies, 104 word products a multiply and 76 a square (K4 at 32768
+// lanes: 0.44 ms).  The core squares by its multiply, and a multiply is a
+// rolled loop of 8 steps of some 68 instructions, so K4's multiplies alone
+// take 1.3 ms at the card's issue rate.  At 32768 lanes a card holds two
+// blocks an SM, two warps a scheduler: too few to hide the multiplies'
+// dependent carry chains, and the kernel runs near 45 % of that rate
+// (PERF.md).  An entry is 32 words (128 bytes; 88 int32 on the 22 x 12
+// limbs), so a point is 32 registers: the accumulator, the entry being
+// selected and a multiply's temporaries fit __launch_bounds__(128, 4)'s
+// 128 registers with no spill.  The table, 4 KB a lane at most, stays in
+// device memory and mostly in L2 (K4 at 32768 lanes: 37.7 MB).  The
+// recode's sd[] is local memory: one byte a window.
+__global__ void __launch_bounds__(BLOCK, CORE_MIN_BLOCKS)
     k_ladder(const int32_t* __restrict__ pts, const int32_t* __restrict__ win,
-             int nwin, int width, int is_signed, int32_t* __restrict__ tbl,
+             int nwin, int width, int is_signed, uint32_t* __restrict__ tbl,
              int32_t* __restrict__ out, int n) {
   const int lane = lane_index();
   if (lane >= n) return;
-  const size_t nn = n;
-  const size_t coord = L * nn;
-  const size_t entry = 4 * coord;
-  const size_t plane = L * nn;         // one coordinate of [4][n][22]
-  const int nb = is_signed ? (1 << (width - 1)) + 1 : 1 << width;
-
-  Pt P;
-  fe_load(P.X, pts, lane);
-  fe_load(P.Y, pts + plane, lane);
-  fe_load(P.Z, pts + 2 * plane, lane);
-  fe_load(P.T, pts + 3 * plane, lane);
-
-  // table: entry 0 the Niels identity (1, 1, 1, 0), entry k = k*P
-  {
-    const Fe one = fe_small(1);
-    fe_store_t(tbl, lane, nn, one);
-    fe_store_t(tbl + coord, lane, nn, one);
-    fe_store_t(tbl + 2 * coord, lane, nn, one);
-    fe_store_t(tbl + 3 * coord, lane, nn, fe_small(0));
-    Pt acc = P, e;
-    for (int k = 1; k < nb; ++k) {
-      if (k > 1) padd_ext(acc, acc, P);
-      to_niels(e, acc);
-      int32_t* t = tbl + k * entry;
-      fe_store_t(t, lane, nn, e.X);
-      fe_store_t(t + coord, lane, nn, e.Y);
-      fe_store_t(t + 2 * coord, lane, nn, e.Z);
-      fe_store_t(t + 3 * coord, lane, nn, e.T);
-    }
-  }
-
+  const size_t plane = L * (size_t)n;  // one coordinate of [4][n][22]
+  zc32::Pt P, Q;
+  P.X = core_load(pts, lane);
+  P.Y = core_load(pts + plane, lane);
+  P.Z = core_load(pts + 2 * plane, lane);
+  P.T = core_load(pts + 3 * plane, lane);
+  const LaneTable t = {reinterpret_cast<uint4*>(tbl) + lane, (size_t)n};
   const int32_t* wl = win + (size_t)lane * nwin;
-  signed char sd[MAX_SIGNED_WINDOWS];
-  if (is_signed) {
-    const int h = 1 << (width - 1), full = 1 << width;
-    int carry = 0;
-    for (int w = 0; w < nwin; ++w) {
-      const int d = wl[w] + carry;
-      const int neg = d >= h;
-      sd[w] = (signed char)(d - neg * full);
-      carry = neg;
-    }
-  }
-
-  Pt Q;
-  Q.X = fe_small(0);
-  Q.Y = fe_small(1);
-  Q.Z = fe_small(1);
-  Q.T = fe_small(0);
-  for (int i = nwin - 1; i >= 0; --i) {
-    for (int j = 0; j < width; ++j) pdbl(Q, j == width - 1);
-    const int d = is_signed ? sd[i] : wl[i];
-    const int32_t s = -(int32_t)(d < 0);
-    const int a = (d ^ s) - s;
-    Pt e, t;
-    fe_load_t(e.X, tbl, lane, nn);
-    fe_load_t(e.Y, tbl + coord, lane, nn);
-    fe_load_t(e.Z, tbl + 2 * coord, lane, nn);
-    fe_load_t(e.T, tbl + 3 * coord, lane, nn);
-    for (int k = 1; k < nb; ++k) {
-      const int32_t m = -(int32_t)(a == k);
-      const int32_t* te = tbl + k * entry;
-      fe_load_t(t.X, te, lane, nn);
-      fe_load_t(t.Y, te + coord, lane, nn);
-      fe_load_t(t.Z, te + 2 * coord, lane, nn);
-      fe_load_t(t.T, te + 3 * coord, lane, nn);
-      fe_cmov(e.X, t.X, m);
-      fe_cmov(e.Y, t.Y, m);
-      fe_cmov(e.Z, t.Z, m);
-      fe_cmov(e.T, t.T, m);
-    }
-    // sign: swap Y+X / Y-X and negate 2dT where s == -1 (a no-op for
-    // unsigned windows, which are never negative)
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-      const int32_t p = e.X.v[k], q = e.Y.v[k];
-      e.X.v[k] = (q & s) | (p & ~s);
-      e.Y.v[k] = (p & s) | (q & ~s);
-      e.T.v[k] = (e.T.v[k] ^ s) - s;
-    }
-    madd(Q, e);
-  }
-  fe_store(out, lane, Q.X);
-  fe_store(out + plane, lane, Q.Y);
-  fe_store(out + 2 * plane, lane, Q.Z);
-  fe_store(out + 3 * plane, lane, Q.T);
+  zc32::ladder_lane(Q, P, [&](int i) { return wl[i]; }, nwin, width,
+                    is_signed, t, zc32::c_d32, zc32::c_d2_32);
+  core_store(out, lane, Q.X);
+  core_store(out + plane, lane, Q.Y);
+  core_store(out + 2 * plane, lane, Q.Z);
+  core_store(out + 3 * plane, lane, Q.T);
 }
 
 // One operand of k_padd: its four coordinates, each a strided view
@@ -210,38 +196,99 @@ struct PaddIn {
   int so, si;
 };
 
-__device__ __forceinline__ void padd_in_load(Pt& P, const PaddIn& in,
-                                             int lane, int inner) {
+// How k_padd reads its operands, chosen by the launcher from the pointers
+// and strides: in 8-byte pieces where every coordinate pointer and both
+// strides are 8-byte aligned (the lane reduction's table halves, the
+// scan's column views, any contiguous planes), else in 4-byte pieces.
+enum PaddRead { READ_WORDS = 1, READ_PAIRS = 2 };
+
+// Element offset of lane `lane` in an operand (the same for its four
+// coordinates).
+__device__ __forceinline__ size_t padd_offset(const PaddIn& in, int lane,
+                                              int inner) {
   const int o = lane / inner;
-  const size_t off = (size_t)o * in.so + (size_t)(lane - o * inner) * in.si;
-  fe_load(P.X, in.c[0] + off, 0);
-  fe_load(P.Y, in.c[1] + off, 0);
-  fe_load(P.Z, in.c[2] + off, 0);
-  fe_load(P.T, in.c[3] + off, 0);
+  return (size_t)o * in.so + (size_t)(lane - o * inner) * in.si;
+}
+
+// Coordinate c of the element at `off`, as a plain value in [0, p)
+// (zc32::padd_plain's operands).
+template <int MODE>
+__device__ __forceinline__ zc32::Fe padd_coord(const PaddIn& in, size_t off,
+                                               int c) {
+  const int32_t* src = in.c[c] + off;
+  int32_t y[L];
+  if (MODE == READ_PAIRS) {
+#pragma unroll
+    for (int k = 0; k < L / 2; ++k) {
+      const int2 v = __ldg(reinterpret_cast<const int2*>(src) + k);
+      y[2 * k] = v.x;
+      y[2 * k + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < L; ++k) y[k] = __ldg(src + k);
+  }
+  return zc32::from_limbs(y);
 }
 
 // K5 -- replaces field_kernels.py:padd_tiled (_padd_kernel).  Batched
-// unified extended addition R = P + Q: one thread per lane runs padd_ext,
-// 10 field multiplies.  The operands are read where they lie -- the MSM's
+// unified extended addition R = P + Q, one thread a lane, on the 8 x 32-bit
+// core: zc32::padd_plain, padd_ext's formula term for term (so the same
+// field values) on plain values, 12 multiplies (field32.cuh says why not
+// 22).  Each operand coordinate is read where the formula first needs it
+// and each coordinate of R is written as soon as it is computed, as
+// canonical limbs (pack_limbs) into coordinate planes [4][n][22]: with at
+// most four field elements and one conversion live at a time the kernel
+// fits 128 registers.  The operands are read where they lie -- the MSM's
 // lane reduction passes halves of its per-lane tables, strided views that
-// would otherwise be copied first -- and R is written as coordinate planes
-// [4][n][22].  Bound by integer multiply-adds (about 9,900 per lane against
-// 1056 bytes of traffic); the TPU's padding to 1024-lane blocks has no
+// would otherwise be copied first -- in 8- or 4-byte pieces (PaddRead).
+// Each warp stages its 32 results of one coordinate in shared memory and
+// writes them as one contiguous run of 8-byte stores.
+//
+// Bound by bytes: 1056 a lane (two points read, one written) against 12
+// field multiplies, 1,248 word products; at the lane reduction's first
+// round at 2^20 (2,973,696 lanes) 0.94 ms of memory against 0.60 ms to
+// issue the multiplies' rolled loops.  It runs at 1.8 x the byte bound
+// (PERF.md).  The TPU's padding to 1024-lane blocks has no
 // counterpart.
-__global__ void __launch_bounds__(BLOCK)
+template <int MODE>
+__global__ void __launch_bounds__(BLOCK, CORE_MIN_BLOCKS)
     k_padd(const PaddIn p, const PaddIn q, int32_t* __restrict__ out, int n,
            int inner) {
+  __shared__ __align__(16) int32_t stage[BLOCK / WARP][WARP * L];
   const int lane = lane_index();
-  if (lane >= n) return;
+  const int t = threadIdx.x % WARP;
+  const int first = lane - t;          // the warp's first lane
+  if (first >= n) return;              // the whole warp: no __syncwarp waits
+  const int count = min(WARP, n - first);
+  const bool live = lane < n;
+  zc32::Fe efgh[4];
+  if (live) {
+    const size_t po = padd_offset(p, lane, inner);
+    const size_t qo = padd_offset(q, lane, inner);
+    zc32::padd_plain([&](int o, int c) {
+      return o ? padd_coord<MODE>(q, qo, c) : padd_coord<MODE>(p, po, c);
+    }, zc32::c_d32, efgh);
+  }
+  int32_t* rows = stage[threadIdx.x / WARP];
   const size_t plane = L * (size_t)n;
-  Pt P, Q;
-  padd_in_load(P, p, lane, inner);
-  padd_in_load(Q, q, lane, inner);
-  padd_ext(P, P, Q);
-  fe_store(out, lane, P.X);
-  fe_store(out + plane, lane, P.Y);
-  fe_store(out + 2 * plane, lane, P.Z);
-  fe_store(out + 3 * plane, lane, P.T);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (live) {
+      int32_t x[L];
+      zc32::pack_limbs(zc32::padd_plain_coord(efgh, c), x);
+#pragma unroll
+      for (int k = 0; k < L / 2; ++k)
+        reinterpret_cast<int2*>(rows + t * L)[k] = make_int2(x[2 * k], x[2 * k + 1]);
+    }
+    __syncwarp();
+    // the warp's lanes are contiguous in the plane: count * 88 bytes, from
+    // an 8-byte aligned start (88 bytes a lane)
+    int2* dst = reinterpret_cast<int2*>(out + c * plane + (size_t)first * L);
+    const int2* src = reinterpret_cast<const int2*>(rows);
+    for (int i = t; i < count * (L / 2); i += WARP) dst[i] = src[i];
+    __syncwarp();
+  }
 }
 
 // K6 -- replaces field_kernels.py:fixed_base_mul_stepped (_madd_affine_kernel,
@@ -349,6 +396,14 @@ __global__ void __launch_bounds__(BLOCK)
 
 inline int blocks_for(int n) { return (n + BLOCK - 1) / BLOCK; }
 
+// True where k_padd may read an operand in 8-byte pieces.
+inline bool padd_pairs(const PaddIn& in) {
+  bool pairs = in.so % 2 == 0 && in.si % 2 == 0;
+  for (int c = 0; c < 4; ++c)
+    pairs = pairs && reinterpret_cast<uintptr_t>(in.c[c]) % 8 == 0;
+  return pairs;
+}
+
 }  // namespace zc
 
 // ---- launchers (plain C interface) ----------------------------------------
@@ -370,11 +425,13 @@ int zc_pow(const int32_t* a, int32_t* out, int32_t* tbl, const int32_t* digits,
   return static_cast<int>(cudaGetLastError());
 }
 
+// tbl: scratch of nb x 32 x n words, nb the table's entries.
 int zc_ladder(const int32_t* pts, const int32_t* win, int nwin, int width,
               int is_signed, int32_t* tbl, int32_t* out, int n, void* stream) {
   zc::k_ladder<<<zc::blocks_for(n), zc::BLOCK, 0,
-                 static_cast<cudaStream_t>(stream)>>>(pts, win, nwin, width,
-                                                      is_signed, tbl, out, n);
+                 static_cast<cudaStream_t>(stream)>>>(
+      pts, win, nwin, width, is_signed, reinterpret_cast<uint32_t*>(tbl), out,
+      n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -386,8 +443,12 @@ int zc_padd(const int32_t* p0, const int32_t* p1, const int32_t* p2,
             int q_si, int32_t* out, int n, int inner, void* stream) {
   const zc::PaddIn p = {{p0, p1, p2, p3}, p_so, p_si};
   const zc::PaddIn q = {{q0, q1, q2, q3}, q_so, q_si};
-  zc::k_padd<<<zc::blocks_for(n), zc::BLOCK, 0,
-               static_cast<cudaStream_t>(stream)>>>(p, q, out, n, inner);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int blocks = zc::blocks_for(n);
+  if (zc::padd_pairs(p) && zc::padd_pairs(q))
+    zc::k_padd<zc::READ_PAIRS><<<blocks, zc::BLOCK, 0, s>>>(p, q, out, n, inner);
+  else
+    zc::k_padd<zc::READ_WORDS><<<blocks, zc::BLOCK, 0, s>>>(p, q, out, n, inner);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -57,19 +57,7 @@ __device__ __forceinline__ void pt_identity(Pt& p) {
   p.T = fe_small(0);
 }
 
-// The 8 x 32-bit core's curve constant d in Montgomery form, d R mod p
-// (tests/test_torch_field32_host.py holds these words equal to it).
-// padd_ext reads it as constant-bank operands, so it takes no registers.
-__constant__ zc32::Fe c_d32 = {{0xa911bcacu, 0x4dc31488u, 0x96c021a0u,
-                                0x150160ffu, 0xf2abb033u, 0x6960412fu,
-                                0x953fedb5u, 0x0bcdf760u}};
-
 constexpr int PT32 = 4 * zc32::NW;     // words of one core-form point
-
-__device__ __forceinline__ uint32_t& pt32_word(zc32::Pt& p, int f) {
-  return f < 8 ? p.X.w[f] : f < 16 ? p.Y.w[f - 8]
-       : f < 24 ? p.Z.w[f - 16] : p.T.w[f - 24];
-}
 
 // 16-byte loads and stores of a core-form point (128 bytes, 16-byte
 // aligned).
@@ -78,10 +66,10 @@ __device__ __forceinline__ void pt32_load(zc32::Pt& p, const uint32_t* src) {
 #pragma unroll
   for (int q = 0; q < PT32 / 4; ++q) {
     const uint4 v = s[q];
-    pt32_word(p, 4 * q) = v.x;
-    pt32_word(p, 4 * q + 1) = v.y;
-    pt32_word(p, 4 * q + 2) = v.z;
-    pt32_word(p, 4 * q + 3) = v.w;
+    zc32::pt_word(p, 4 * q) = v.x;
+    zc32::pt_word(p, 4 * q + 1) = v.y;
+    zc32::pt_word(p, 4 * q + 2) = v.z;
+    zc32::pt_word(p, 4 * q + 3) = v.w;
   }
 }
 
@@ -89,8 +77,8 @@ __device__ __forceinline__ void pt32_store(uint32_t* dst, zc32::Pt& p) {
   uint4* d = reinterpret_cast<uint4*>(dst);
 #pragma unroll
   for (int q = 0; q < PT32 / 4; ++q)
-    d[q] = make_uint4(pt32_word(p, 4 * q), pt32_word(p, 4 * q + 1),
-                      pt32_word(p, 4 * q + 2), pt32_word(p, 4 * q + 3));
+    d[q] = make_uint4(zc32::pt_word(p, 4 * q), zc32::pt_word(p, 4 * q + 1),
+                      zc32::pt_word(p, 4 * q + 2), zc32::pt_word(p, 4 * q + 3));
 }
 
 // Prep of k_bucket_accum: points [4][n][22] (signed lazy limbs, any value
@@ -184,7 +172,7 @@ __global__ void __launch_bounds__(ACCUM_BLOCK, ACCUM_MIN_BLOCKS)
     }
     uint32_t* e = reinterpret_cast<uint32_t*>(mine + (dv < 0 ? -dv : dv) * stride);
     pt32_load(E, e);
-    zc32::padd_ext(E, E, P, c_d32);
+    zc32::padd_ext(E, E, P, zc32::c_d32);
     pt32_store(e, E);
   }
 

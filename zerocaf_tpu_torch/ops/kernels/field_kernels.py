@@ -11,18 +11,23 @@ versions (zerocaf_tpu/ops/pallas/field_kernels.py counterpart).
   K10 ``scalar_mul_windowed_fused``    the unsigned windowed ladder as one
                                        program (K3's kernel, its own entry)
 
-The CUDA sources are ``zerocaf_tpu_torch/csrc/{field.cuh,field_kernels.cu}``.
-Each wrapper checks its tensors (int32, limb axis 22, contiguous, one device)
-and raises on anything else.  For CUDA tensors it launches its kernel, or
-raises if the kernel library cannot be built or the launch fails; for CPU
-tensors it runs the plain version beside it.  ``<wrapper>.launches`` counts
-kernel launches and nothing else.
+The CUDA sources are ``zerocaf_tpu_torch/csrc/field_kernels.cu`` with
+``field.cuh`` (K1, K2, K6) and ``field32.cuh``/``ladder32.cuh`` (K3, K4, K5,
+K10).  Each wrapper checks its tensors (int32, limb axis 22, contiguous, one
+device) and raises on anything else.  For CUDA tensors it launches its
+kernel, or raises if the kernel library cannot be built or the launch fails;
+for CPU tensors it runs the plain version beside it.  ``<wrapper>.launches``
+counts kernel launches and nothing else.
 
-The plain versions use the kernels' algorithm and limb algebra -- the same
-schoolbook columns, the two-pass keep-top carries, the cascade folds and the
-single carry passes (``_c1``) at the same places -- so a kernel and its plain
-version agree limb for limb, not only canonically.  Laziness bounds (radix
-2^12, int32 columns), as in the JAX package:
+The plain versions use the kernels' algorithm and the limb algebra of
+``field.cuh`` -- the same schoolbook columns, the two-pass keep-top carries,
+the cascade folds and the single carry passes (``_c1``) at the same places.
+K1, K2 and K6 compute in that algebra on the card too and agree with their
+plain versions limb for limb.  K3, K4, K5 and K10 compute on the 8 x 32-bit
+Montgomery core of ``field32.cuh`` with the same formulas, so they give the
+same field values and write them as canonical limbs: they agree with their
+plain versions after ``limb.canonical``.  Laziness bounds (radix 2^12, int32
+columns), as in the JAX package:
   * semi limbs are < 2^12.1 after a carry pass;
   * multiply operands may be one add deep (<= 2^13.1): 22 * 2^26.2 < 2^30.7;
   * square operands must be semi: 23 * 2^12.1 * 2^13.1 < 2^29.8;
@@ -41,6 +46,7 @@ from . import build
 L = 22
 POW_WIDTH = 4
 MAX_TABLE = 17      # entries of the per-lane Niels table the kernel accepts
+NIELS_WORDS = 32    # 32-bit words of one such entry on the 8 x 32-bit core
 MAX_SIGNED_WINDOWS = 256
 
 
@@ -353,7 +359,8 @@ def _ladder(wrapper, pt, windows, width: int, signed: bool):
     pts = torch.stack(pt)                            # [4, ..., 22]
     out = torch.empty_like(pts)
     if n:
-        tbl = torch.empty((nb, 4, L, n), dtype=torch.int32, device=dev)
+        # the per-lane Niels tables in the core's form, [entry][piece][lane][4]
+        tbl = torch.empty((nb, NIELS_WORDS, n), dtype=torch.int32, device=dev)
         _launch(name, dev, "zc_ladder", pts, windows, nwin, width, int(signed),
                 tbl, out, n)
         wrapper.launches += 1
@@ -425,7 +432,8 @@ def padd_tiled(p, q):
     """Batched unified point addition P + Q (K5).  p, q: 4-tuples of
     [..., 22] int32 extended coordinates, all of one shape; they need not
     be contiguous, and strided views are read in place.  Returns the
-    4-tuple of the sums, coordinate planes of one [4, ..., 22] tensor."""
+    4-tuple of the sums, coordinate planes of one [4, ..., 22] tensor (the
+    kernel writes canonical limbs; the plain version semi limbs)."""
     if len(p) != 4 or len(q) != 4:
         raise ValueError(f"padd_tiled: expected 4 coordinates, got {len(p)} "
                          f"and {len(q)}")
