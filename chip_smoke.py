@@ -8,17 +8,22 @@ Phases, in order (any failure raises, so the exit code is non-zero):
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: compile (or load) the kernel libraries from zerocaf_tpu_torch/csrc,
      one nvcc process per source, all at once; ptxas' registers and spills,
-     and those of the kernels on the 8 x 32-bit core (k_bucket_accum,
-     k_padd, k_ladder) apart; the 32 x 32 -> 64-bit products
+     and those of the kernels on the 8 x 32-bit core apart; for
+     k_bucket_accum, k_padd and k_ladder the 32 x 32 -> 64-bit products
      (IMAD.WIDE.U32), the IMAD.HI of the multiply's carry chains and all
-     instructions in the SASS of those kernels (cuobjdump; static counts:
-     the multiply is a rolled loop), and the instructions of one step of
-     that loop;
+     instructions in their SASS (cuobjdump; static counts: the multiply is
+     a rolled loop) beside their counts at commit 4ba3dd9, before the
+     core's modulus became a template parameter with p the default (the
+     same code), and the
+     instructions of one step of that loop; the latency of one dependent
+     core multiply (zc_mul_chain, one thread, 4,096 of them), checked
+     against the oracle;
   3. kernels: K1-K4 against their plain PyTorch versions at the main path's
-     shapes (K1, K2 limb for limb; K3, K4, on the 8 x 32-bit core, against
-     the plain versions' canonical limbs), with CUDA-event times of both
-     and, for K3 and K4, the time their multiplies' SASS would take at the
-     card's issue rate;
+     shapes (K1 limb for limb; K2, K3, K4, on the 8 x 32-bit core, against
+     the plain versions' canonical limbs; K2 for every chain exponent mod
+     p and r - 2 mod r, timed at 32768 and 2^20 lanes with the peak memory
+     of one launch), with CUDA-event times of both and, for K3 and K4, the
+     time their multiplies' SASS would take at the card's issue rate;
   4. vectors: the 16 Ristretto small multiples, the Elligator sage vector
      and [2]B, byte for byte;
   5. ECDH at batch 32768: public keys by the ladder (K3), shared secrets by
@@ -31,7 +36,10 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      clock, with the min and max) and ladder mults/s;
   9. K5 against its plain version (canonical limbs) at 2^16 lanes;
  10. K7's prep kernel (to_field32), K7 and K8 against their plain versions
-     at 2^14 points, c = 6, k = 4;
+     at 2^14 points, c = 6, k = 4 (K8 on canonical limbs), and K8 in the
+     window-sharded form of rank 3 of 4 (11 windows, 24 doublings a window,
+     tail 18), each with its chain bound (its dependent multiply rounds
+     times phase 2's latency);
  11. Engine.msm at batch 2^20, c = 6, the MSM main path: points k'_i B
      made by the ladder (K3) and encoded, seeded canonical scalars; the
      aggregate equals the oracle's; an invalid lane makes ok false; pad_msm
@@ -45,10 +53,10 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      time and bound on every round of that reduction, with K8's time;
  14. rates: Engine.msm points/s at 2^20 for c = 5, 6 and 7 (median of 5
      calls on the host clock, with the min and max);
- 15. one Engine.msm call at 2^20 under torch.profiler: device busy share
-     and the kernels that take the most device time; then one more call
-     with torch.cat and torch.stack wrapped, naming the callers of the
-     copies;
+ 15. one Engine.msm call at 2^20 under torch.profiler: device busy share,
+     the kernels that take the most device time, and K1's, K2's and K8's
+     launches and time; then one more call with torch.cat and torch.stack
+     wrapped, naming the callers of the copies;
  16. comb table: the signed width-14 table loaded from the cache or built
      from the oracle (seconds printed), uploaded in both layouts;
  17. K6 against its plain version at 32768 lanes: signed width 14 on the
@@ -76,16 +84,18 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      and k = 2 calls are K11's and K12's main path);
  23. msm_sharded at 2^20 on one rank over NCCL, dense + shard_combine (the
      pod configuration, K9's main path): equal to the oracle and to
-     Engine.msm, K9 launched 11 times, K7 and K8 not at all, the median of
-     5 calls; then dense alone (K7 + K8);
+     Engine.msm, K9 launched 11 times, K8 once (the window-sharded
+     combine), K7 not at all, the median of 5 calls, one call profiled as
+     in phase 15; then dense alone (K7 + K8);
  24. msm_sharded on 4 gloo ranks sharing the card (spawned processes; the
      parent built the kernels), 2^18 points each: every rank's total
-     equals the oracle's, with its launches, times and peak memory;
+     equals the oracle's, K8 launched once a rank, with its launches,
+     times and peak memory;
  25. msm_with_checkpoints at 2^16 points in 4 blocks, and the same job
      resumed from its file after block 2, equal to the one-shot MSM.
-Kernels on the 8 x 32-bit core (K3, K4, K5, K7, K9-K12) write canonical
-limbs and are held against their plain versions' canonical limbs; the
-others limb for limb.
+Kernels on the 8 x 32-bit core (K2-K5, K7-K12) write canonical limbs and
+are held against their plain versions' canonical limbs; the others limb
+for limb.
 The line before the last is a JSON object with one entry per kernel, with
 its bound (the larger of its bytes over the memory rate and its field
 multiplies and squares, priced at the 8 x 32 core's word products, over
@@ -152,6 +162,17 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 IMAD_PER_SM_CLOCK = 64    # 32-bit integer multiply-add, compute capability 9.0
 ISSUE_PER_SM_CLOCK = 4    # warp instructions: four schedulers an SM
 CORE_KERNELS = ("k_bucket_accum", "k_padd", "k_ladder")   # on field32.cuh
+# Their SASS at commit 4ba3dd9 (sm_90a), before the core's
+# modulus became a template parameter: (IMAD.WIDE.U32, IMAD.HI, all
+# instructions) by mangled name; the templated core must leave them so.
+UNTEMPLATED_SASS = {"_ZN2zc14k_bucket_accumEPKjPKiPiiiii": (2, 170, 2552),
+                    "_ZN2zc6k_paddILi1EEEvNS_6PaddInES1_Piii": (43, 146, 4952),
+                    "_ZN2zc6k_paddILi2EEEvNS_6PaddInES1_Piii": (43, 146, 4864),
+                    "_ZN2zc8k_ladderEPKiS1_iiiPjPii": (19, 420, 7672)}
+PTXAS_KERNELS = ("k_pow", "k_combine", "k_mul_chain")     # ptxas report
+MUL_CHAIN = 4096              # dependent multiplies of the latency probe
+POW_BIG = 1 << 20             # K2's lanes in Engine.msm's decode at 2^20
+WATCHED = ("k_mul", "k_pow", "k_combine")   # profiled calls name these apart
 
 # Reference vectors: compressed k*B for k = 0..15, and the Elligator sage
 # vector (input bytes, expected point as 52-bit limbs).
@@ -348,6 +369,43 @@ def muls(work) -> float:
     return float(work[0]) + float(work[1])
 
 
+def mul_latency_us(dev, rng) -> float:
+    """The latency of one dependent field multiply of the core: zc_mul_chain
+    (one thread, MUL_CHAIN multiplies, each of the last one's product) timed
+    by CUDA events, after a warm-up launch whose product is held against
+    the oracle (a b^n R^-n mod p)."""
+    from zerocaf_tpu_torch import oracle as o
+    from zerocaf_tpu_torch.ops.kernels import build
+
+    R = 1 << 256
+    a, b = (int.from_bytes(rng.bytes(32), "little") % o.P for _ in range(2))
+    words = [(v >> (32 * i)) & 0xFFFFFFFF for v in (a, b) for i in range(8)]
+    init = torch.tensor(np.array(words, np.uint32).view(np.int32), device=dev)
+    x = init.clone()
+    build.launch("zc_mul_chain", dev, "msm_kernels", "zc_mul_chain", x, MUL_CHAIN)
+    got = sum(int(w) << (32 * i) for i, w in
+              enumerate(x[:8].cpu().numpy().view(np.uint32)))
+    if got != a * pow(b * pow(R, -1, o.P), MUL_CHAIN, o.P) % o.P:
+        raise AssertionError("zc_mul_chain's product differs from the oracle's")
+    x.copy_(init)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    build.launch("zc_mul_chain", dev, "msm_kernels", "zc_mul_chain", x, MUL_CHAIN)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / MUL_CHAIN
+
+
+def k8_chain_rounds(nwin: int, nb: int, c: int, tail: int = 0) -> int:
+    """Dependent multiply rounds on K8's critical path: two a point
+    operation (csrc/quad32.cuh), over the nb - 1 additions of a window's
+    running total and Horner's nwin (c + 1) operations and tail doublings
+    (the quad's other rounds -- the conversion, d T -- not counted)."""
+    return 2 * (nb - 1 + nwin * (c + 1) + tail)
+
+
 def max_abs_err(got, want) -> int:
     if isinstance(got, tuple):
         return max(max_abs_err(g, w) for g, w in zip(got, want))
@@ -402,11 +460,18 @@ def main() -> None:
         stem = "msm_kernels" if kernel == "k_bucket_accum" else "field_kernels"
         for name, counts in sass_counts(paths[stem], kernel).items():
             r = report.get(name, {})
+            was = UNTEMPLATED_SASS.get(name)
             phase("core kernels", f"{name}: {r.get('registers')} registers, "
                   f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} "
                   f"B spill loads, {r.get('stack')} B stack; SASS {counts[0]} "
                   f"IMAD.WIDE.U32 and {counts[1]} IMAD.HI of {counts[2]} "
-                  f"instructions")
+                  f"instructions (at 4ba3dd9: {was}; "
+                  f"{'the same' if was == counts else 'differs'})")
+    for name, r in report.items():
+        if any(k in name for k in PTXAS_KERNELS):
+            phase("core kernels", f"{name}: {r.get('registers')} registers, "
+                  f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} "
+                  f"B spill loads, {r.get('stack')} B stack")
     steps = {k: mul_step_instructions(paths["field_kernels"], k)
              for k in ("k_ladder", "k_padd")}
     phase("core kernels", f"one step of the rolled multiply: {steps['k_ladder']} "
@@ -415,6 +480,10 @@ def main() -> None:
     phase("bound basis", f"a field multiply {OPS_8X32[0]} and a square "
           f"{OPS_8X32[1]} word products on the 8 x 32 core (22 x 12 algebra: "
           f"{OPS_22X12[0]} and {OPS_22X12[1]} multiply-adds)")
+    mul_us = mul_latency_us(dev, rng)
+    phase("core kernels", f"zc_mul_chain: one dependent multiply of the core "
+          f"takes {mul_us:.4f} us ({MUL_CHAIN} in one thread, CUDA events, "
+          f"product equal to the oracle's)")
 
     def rand_bytes(shape):
         return torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
@@ -455,21 +524,62 @@ def main() -> None:
     x = limb.sub(fk.mul_tiled_ref(rand_elems(BATCH, limb.FIELD),
                                   rand_elems(BATCH, limb.FIELD)),
                  rand_elems(BATCH, limb.FIELD))
-    for e in C.CHAIN_EXPONENTS:
-        err = max_abs_err(fk.pow_tiled(x, e), fk.pow_tiled_ref(x, e))
-        msg = (f"e={hex(e)[:12]}.. {BATCH} lanes: max_abs_err {err} "
-               f"(tolerance {TOLERANCE})")
+    xr = limb.sub(fk.mul_tiled_ref(rand_elems(BATCH, limb.SCALAR),
+                                   rand_elems(BATCH, limb.SCALAR), limb.SCALAR),
+                  rand_elems(BATCH, limb.SCALAR))
+
+    def k2_bound(e, n):
+        """K2's bound for n lanes: the table's 14 multiplies, 4 squares a
+        digit after the first and a multiply a nonzero one; limbs read and
+        written once."""
+        digits = fk.pow_digits(e)
+        per_lane = (14 * MUL + 4 * (len(digits) - 1) * SQ
+                    + sum(1 for d in digits[1:] if d) * MUL)
+        return roof(n * per_lane, 2 * n * 22 * 4 + 4 * len(digits))
+
+    def k2_peak(a, e):
+        """Bytes one K2 launch allocates at its peak (its output)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fk.pow_tiled(a, e)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        return peak
+
+    for e, spec, a in [(e, limb.FIELD, x) for e in C.CHAIN_EXPONENTS] + [
+            (C.R - 2, limb.SCALAR, xr)]:
+        err = max_abs_err(fk.pow_tiled(a, e, spec),
+                          limb.canonical(fk.pow_tiled_ref(a, e, spec), spec))
+        msg = (f"e={hex(e)[:12]}.. mod {'r' if spec is limb.SCALAR else 'p'}, "
+               f"{BATCH} lanes: max_abs_err {err} (tolerance {TOLERANCE}, "
+               f"canonical limbs)")
         if err > TOLERANCE:
             raise AssertionError(f"K2 differs from its plain version: {msg}")
         if e == C.EXP_SQRT_RATIO:       # the exponent every encode/decode runs
             ms = cuda_ms(lambda: fk.pow_tiled(x, e), 10)
             plain = cuda_ms(lambda: fk.pow_tiled_ref(x, e), 2)
-            msg += f", kernel {ms:.4f} ms, plain {plain:.4f} ms"
-            digits = fk.pow_digits(e)
-            per_lane = (14 * MUL + 4 * (len(digits) - 1) * SQ
-                        + sum(1 for d in digits[1:] if d) * MUL)
-            record(fk.pow_tiled, err, ms, plain,
-                   roof(BATCH * per_lane, 2 * BATCH * 22 * 4 + 4 * len(digits)))
+            bound = k2_bound(e, BATCH)
+            # 2^20 lanes, Engine.msm's decode: x repeated, so each block of
+            # 32768 lanes must equal the first call's result
+            big = x.repeat(POW_BIG // BATCH, 1)
+            out_big = fk.pow_tiled(big, e)
+            if not torch.equal(out_big, fk.pow_tiled(x, e).repeat(POW_BIG // BATCH, 1)):
+                raise AssertionError("K2 at 2^20 lanes differs from K2 at 32768")
+            del out_big
+            ms_big = cuda_ms(lambda: fk.pow_tiled(big, e), 3)
+            bound_big = k2_bound(e, POW_BIG)
+            peak, peak_big = k2_peak(x, e), k2_peak(big, e)
+            del big
+            msg += (f", kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                    f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}, peak "
+                    f"{peak / 2**20:.1f} MiB; at {POW_BIG} lanes kernel "
+                    f"{ms_big:.3f} ms, bound {bound_big['bound_ms']:.3f} ms by "
+                    f"{bound_big['bound_by']}, peak {peak_big / 2**20:.1f} MiB")
+            record(fk.pow_tiled, err, ms, plain, bound, ms_2p20=ms_big,
+                   bound_ms_2p20=bound_big["bound_ms"], peak_bytes=peak,
+                   peak_bytes_2p20=peak_big)
         else:
             record(fk.pow_tiled, err)
         phase("K2 pow_tiled", msg)
@@ -598,7 +708,8 @@ def main() -> None:
     phase("rates", f"{card}: {', '.join(rates)}, ladder {BATCH / k3_ms * 1e3:.0f} "
           f"mults/s, signed windowed {BATCH / k4_ms * 1e3:.0f} mults/s, batch {BATCH}")
 
-    msm_main, msm_ctx = msm_phases(dev, rng, roof, card, pts, record, steps)
+    msm_main, msm_ctx = msm_phases(dev, rng, roof, card, pts, record, steps,
+                                   mul_us)
     counts.update(msm_main)
     counts.update(keygen_phases(dev, rng, roof, card, pts, s, record, steps))
     counts.update(msm_option_phases(dev, roof, card, msm_ctx, record))
@@ -666,19 +777,23 @@ def k7_work(dig_g, nb: int, lanes: int) -> tuple[float, float]:
             n * PT_BYTES + 4 * dig_g.numel() + ngrp * k * nb * lanes * PT_BYTES)
 
 
-def k8_work(nwin: int, nb: int, c: int) -> tuple[float, float]:
+def k8_work(nwin: int, nb: int, c: int, tail: int = 0) -> tuple[float, float]:
     """(multiply-adds, bytes) of K8: 2(nb-1) additions per window, then per
-    window c doublings and one addition."""
+    window c doublings and one addition, then tail doublings."""
     work = nwin * (2 * (nb - 1) * PADD + (c - 1) * PDBL + PDBL_T + PADD)
+    if tail:
+        work = work + (tail - 1) * PDBL + PDBL_T
     return work, nwin * nb * PT_BYTES + PT_BYTES
 
 
-def msm_phases(dev, rng, roof, card, ecdh_pts, record, steps) -> dict[str, int]:
+def msm_phases(dev, rng, roof, card, ecdh_pts, record, steps,
+               mul_us) -> dict[str, int]:
     """Phases 9-15: K5, K7 and K8 against their plain versions, Engine.msm
     at 2^20 against the oracle, the route cross-check, the rates and the
     profile.  Returns the launch counts of K5, K7 and K8 in the three
     Engine.msm calls of phase 11, the MSM main path.  steps: phase 2's
-    instructions in a step of the rolled multiply, by kernel."""
+    instructions in a step of the rolled multiply, by kernel; mul_us: its
+    latency of one dependent multiply."""
     import importlib
 
     import zerocaf_tpu_torch as zt
@@ -745,16 +860,40 @@ def msm_phases(dev, rng, roof, card, ecdh_pts, record, steps) -> dict[str, int]:
     arr = tbl.view(-1, lanes, 4, 22)
     red = tmsm._lane_reduce(tuple(arr[:, :, j] for j in range(4)))
     tables = tuple(t.reshape(-1, nb, 22)[:nwin].contiguous() for t in red)
-    err8 = max_abs_err(mk.combine_tables(tables, nb, nwin, MSM_C),
-                       mk.combine_tables_ref(tables, nb, nwin, MSM_C))
-    ms8 = cuda_ms(lambda: mk.combine_tables(tables, nb, nwin, MSM_C), 5)
-    plain8 = cuda_ms(lambda: mk.combine_tables_ref(tables, nb, nwin, MSM_C), 1)
-    phase("K8 combine_tables", f"nwin {nwin}, nb {nb}: max_abs_err {err8} "
-          f"(tolerance {TOLERANCE}), kernel {ms8:.3f} ms, plain {plain8:.3f} ms")
-    if err7 > TOLERANCE or err8 > TOLERANCE:
-        raise AssertionError("K7 or K8 differs from its plain version")
-    record(mk.combine_tables, err8, ms8, plain8, roof(*k8_work(nwin, nb, MSM_C)))
+    if err7 > TOLERANCE:
+        raise AssertionError("K7 differs from its plain version")
     record(mk.bucket_accum_all, err7)
+    # K8 as Engine.msm runs it, then in the shape of rank 3 of 4 in the
+    # window-sharded combine at c = 6 (parallel/msm.py:_sharded_combine):
+    # 11 windows (here the first 11 tables), c ndev doublings a window, c
+    # rank after them
+    ndev, rank = 4, 3
+    k = -(-nwin // ndev)
+    strided = tuple(t[:k].contiguous() for t in tables)
+    for label, tb, nw, c, tail in (("", tables, nwin, MSM_C, 0),
+                                   (" strided", strided, k, MSM_C * ndev,
+                                    MSM_C * rank)):
+        err8 = max_abs_err(mk.combine_tables(tb, nb, nw, c, tail=tail),
+                           canonical(mk.combine_tables_ref(tb, nb, nw, c, tail)))
+        ms8 = cuda_ms(lambda: mk.combine_tables(tb, nb, nw, c, tail=tail), 5)
+        plain8 = cuda_ms(lambda: mk.combine_tables_ref(tb, nb, nw, c, tail), 1)
+        rounds = k8_chain_rounds(nw, nb, c, tail)
+        chain = rounds * mul_us / 1e3
+        bound = roof(*k8_work(nw, nb, c, tail))
+        phase(f"K8 combine_tables{label}", f"nwin {nw}, nb {nb}, c {c}, tail "
+              f"{tail}: max_abs_err {err8} (tolerance {TOLERANCE}, canonical "
+              f"limbs), kernel {ms8:.4f} ms, plain {plain8:.1f} ms, bound "
+              f"{bound['bound_ms']:.5f} ms by {bound['bound_by']}, chain bound "
+              f"{chain:.4f} ms ({rounds} dependent multiply rounds of "
+              f"{mul_us:.4f} us)")
+        if err8 > TOLERANCE:
+            raise AssertionError(f"K8{label} differs from its plain version")
+        if tail:
+            record(mk.combine_tables, err8, strided_ms=ms8, strided_plain_ms=plain8,
+                   strided_chain_bound_ms=chain)
+        else:
+            record(mk.combine_tables, err8, ms8, plain8, bound, chain_bound_ms=chain,
+                   chain_rounds=rounds, mul_latency_us=mul_us)
     torch.cuda.synchronize()
 
     # 11. Engine.msm at 2^20: the main path, with its own launch counts
@@ -1233,7 +1372,7 @@ def sharded_phases(dev, card, ctx) -> dict[str, int]:
             raise AssertionError("msm_sharded (1 rank, pod) differs from the "
                                  "oracle or Engine.msm")
         if (launched["bucket_accum_k"] != ngrp or launched["bucket_accum_all"]
-                or launched["combine_tables"] or not launched["padd_tiled"]
+                or launched["combine_tables"] != 1 or not launched["padd_tiled"]
                 or not launched["to_field32"]):
             raise AssertionError(f"msm_sharded (1 rank, pod) launches: {launched}")
         t = call_ms(lambda: msm_sharded(pts, s, mesh, **pod), MSM_RATE_CALLS)
@@ -1281,7 +1420,8 @@ def sharded_phases(dev, card, ctx) -> dict[str, int]:
               f"points on {r['device']}, equals the oracle: {r['ok']}; launches "
               f"{json.dumps(r['launches'])}; calls {r['ms']} ms; peak memory "
               f"{r['peak_bytes'] / 2**30:.2f} GiB")
-        if not r["ok"] or r["launches"]["bucket_accum_k"] != ngrp:
+        if (not r["ok"] or r["launches"]["bucket_accum_k"] != ngrp
+                or r["launches"].get("combine_tables") != 1):
             raise AssertionError(f"msm_sharded on 4 ranks, rank {r['rank']}")
     phase("msm_sharded 4 ranks", f"gloo, {world} processes sharing the card "
           f"({card}), dense + shard_combine, c=None: every rank's total equals "
@@ -1392,6 +1532,12 @@ def profile_call(label: str, what: str, fn) -> None:
     for e in top:
         phase(label, f"{e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x {e.key[:90]}")
+    watched = []
+    for kernel in WATCHED:
+        hits = [e for e in rows if f"zc::{kernel}" in e.key]
+        watched.append(f"{kernel} {sum(e.count for e in hits)}x "
+                       f"{sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms")
+    phase(label, "K1, K2, K8: " + ", ".join(watched))
 
 
 def profile_copies(label: str, fn, top: int = 8) -> None:

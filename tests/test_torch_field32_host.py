@@ -1,16 +1,20 @@
 """PyTorch port: host rehearsal of the 8 x 32-bit field core of
-``k_bucket_accum``, ``k_padd`` and ``k_ladder``
-(``zerocaf_tpu_torch/csrc/field32.cuh``) and of the ladder's per-lane body
-(``csrc/ladder32.cuh``).
+``k_bucket_accum``, ``k_combine``, ``k_padd``, ``k_ladder`` and ``k_pow``
+(``zerocaf_tpu_torch/csrc/field32.cuh``, modulo p and modulo r), of the
+per-lane bodies of the ladder (``csrc/ladder32.cuh``) and of the power
+chain (``csrc/pow32.cuh``), and of ``k_combine``'s four-thread point
+operations (``csrc/quad32.cuh``).
 
 The headers are plain C++ whose functions are all ``__host__ __device__
 __forceinline__``.  Here ``g++ -std=c++20 -O1`` compiles them for the host,
 through a shim that defines those qualifiers away, into one small shared
 library that ``ctypes`` loads; the tests hold its multiply, square, add,
-subtract, the conversions across the 22 x 12-bit boundary, the point
-formulas (``padd_ext``, ``pdbl``, ``madd``, ``to_niels``, with the curve
-constants the kernels read) and the ladder against the port's oracle and
-its plain versions.  They skip where there is no ``g++``."""
+subtract, the SOS square, the conversions across the 22 x 12-bit
+boundary, the moduli's constants, the point formulas (``padd_ext``, ``pdbl``, ``madd``,
+``to_niels``, with the curve constants the kernels read, and their
+four-thread forms, the four roles run as host threads that exchange
+through an array), the ladder and the power chain against the port's
+oracle and its plain versions.  They skip where there is no ``g++``."""
 
 import ctypes
 import re
@@ -38,8 +42,13 @@ SHIM = """
 """
 
 BINDINGS = r"""
+#include <barrier>
+#include <thread>
+
 #include "shim.h"
 #include "ladder32.cuh"
+#include "pow32.cuh"
+#include "quad32.cuh"
 
 using namespace zc32;
 
@@ -95,6 +104,9 @@ void f32_add(const uint32_t* a, const uint32_t* b, uint32_t* out, int n) {
 }
 void f32_sub(const uint32_t* a, const uint32_t* b, uint32_t* out, int n) {
   for (int i = 0; i < n; ++i) put(out + 8 * i, fe_sub(get(a + 8 * i), get(b + 8 * i)));
+}
+void f32_half(const uint32_t* a, uint32_t* out, int n) {
+  for (int i = 0; i < n; ++i) put(out + 8 * i, fe_half(get(a + 8 * i)));
 }
 void f32_from_limbs(const int32_t* x, uint32_t* out, int n) {
   for (int i = 0; i < n; ++i) {
@@ -170,6 +182,136 @@ void f32_ladder(const int32_t* pts, const int32_t* win, int nwin, int width,
     pt_out(out + 88 * i, Q);
   }
 }
+
+}  // extern "C"
+
+// The moduli's constants: R, R^2, R^4 mod m and -m^-1 mod 2^32 (spec 0:
+// p, 1: r), 25 words.
+template <class M>
+static void consts_of(uint32_t* out) {
+  for (int i = 0; i < NW; ++i) {
+    out[i] = M::one(i);
+    out[8 + i] = M::r2(i);
+    out[16 + i] = M::r4(i);
+  }
+  out[24] = M::INV;
+}
+
+extern "C" {
+void f32_mod_consts(int spec, uint32_t* out) {
+  spec ? consts_of<ModR>(out) : consts_of<ModP>(out);
+}
+
+// Field operations mod r (op 0 mul, 1 sqr, 2 add, 3 sub, 4 half), Montgomery
+// form in and out; 5 and 6 convert limbs [n][22] to v R mod r and words to
+// canonical limbs.
+void f32r_op(int op, const void* a, const uint32_t* b, void* out, int n) {
+  const uint32_t* aw = static_cast<const uint32_t*>(a);
+  uint32_t* ow = static_cast<uint32_t*>(out);
+  for (int i = 0; i < n; ++i) {
+    if (op == 5) {
+      int32_t v[NL];
+      for (int k = 0; k < NL; ++k) v[k] = static_cast<const int32_t*>(a)[NL * i + k];
+      put(ow + 8 * i, to_mont<ModR>(from_limbs<ModR>(v)));
+      continue;
+    }
+    if (op == 6) {
+      int32_t v[NL];
+      to_limbs<ModR>(get(aw + 8 * i), v);
+      for (int k = 0; k < NL; ++k) static_cast<int32_t*>(out)[NL * i + k] = v[k];
+      continue;
+    }
+    const Fe x = get(aw + 8 * i), y = get(b + 8 * i);
+    put(ow + 8 * i, op == 0 ? fe_mul<ModR>(x, y) : op == 1 ? fe_sq<ModR>(x)
+                  : op == 2 ? fe_add<ModR>(x, y) : op == 3 ? fe_sub<ModR>(x, y)
+                  : fe_half<ModR>(x));
+  }
+}
+
+}  // extern "C"
+
+// The SOS square of words [n][8] in Montgomery form (spec 0: p, 1: r).
+template <class M>
+static void sos_squares(const uint32_t* a, uint32_t* out, int n) {
+  for (int i = 0; i < n; ++i) ::put(out + 8 * i, fe_sq_sos<M>(::get(a + 8 * i)));
+}
+
+extern "C" {
+void f32_sqr_sos(int spec, const uint32_t* a, uint32_t* out, int n) {
+  spec ? sos_squares<ModR>(a, out, n) : sos_squares<ModP>(a, out, n);
+}
+}  // extern "C"
+
+// One lane's power-chain table: an array [entry][word].
+struct HostPowTable {
+  uint32_t* base;
+  Fe get(int k) const { return ::get(base + NW * k); }
+  void put(int k, const Fe& v) const { ::put(base + NW * k, v); }
+};
+
+// k_pow's lanes: limbs [n][22] (any int32) -> a^e mod m as canonical limbs,
+// e given by its width-4 digits, most significant first.
+template <class M>
+static void pow_lanes(const int32_t* a, const int32_t* digits, int nwin,
+                      int32_t* out, int n) {
+  uint32_t tbl[POW_ENTRIES * NW];
+  for (int i = 0; i < n; ++i) {
+    int32_t v[NL];
+    for (int k = 0; k < NL; ++k) v[k] = a[NL * i + k];
+    const Fe r = pow_lane<M>(to_mont<M>(from_limbs<M>(v)),
+                             [&](int w) { return digits[w]; }, nwin,
+                             HostPowTable{tbl});
+    to_limbs<M>(r, v);
+    for (int k = 0; k < NL; ++k) out[NL * i + k] = v[k];
+  }
+}
+
+extern "C" {
+void f32_pow(int spec, const int32_t* a, const int32_t* digits, int nwin,
+             int32_t* out, int n) {
+  spec ? pow_lanes<ModR>(a, digits, nwin, out, n)
+       : pow_lanes<ModP>(a, digits, nwin, out, n);
+}
+
+// k_combine's point operations on points [n][4][22] limbs, each run by
+// four host threads, role j holding coordinate j: op 0 P + Q with Q's
+// round-1 operands read from memory (its T as d T, as k_combine's bucket
+// sums and totals), 1 P + Q with Q held by the quad (the running sum's
+// tot += acc), 2 2P.  Results as canonical limbs.
+void f32_quad(int op, const int32_t* a, const int32_t* b, int32_t* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    Pt P = pt_in(a + 88 * i), Q = pt_in(b + 88 * i);
+    Pt R;
+    Fe slot[4];
+    std::barrier<> bar(4);
+    const Fe one = fe_one();
+    std::thread roles[4];
+    for (int j = 0; j < 4; ++j) {
+      roles[j] = std::thread([&, j] {
+        const auto x = [&](const Fe& v, int s) {
+          slot[j] = v;
+          bar.arrive_and_wait();
+          const Fe r = slot[s];
+          bar.arrive_and_wait();
+          return r;
+        };
+        Fe v = coord(P, j);
+        if (op == 0) {
+          Fe qa = coord(Q, quad_add_a(j)), qb = coord(Q, quad_add_b(j));
+          if (j == 2) qa = qb = fe_mul(qa, c_d32);
+          quad_padd(v, quad_operand(qa, qb, j), j, x);
+        } else if (op == 1) {
+          quad_padd(v, quad_held_operand(coord(Q, j), j, x, c_d32, one), j, x);
+        } else {
+          quad_pdbl(v, j, x);
+        }
+        (j == 0 ? R.X : j == 1 ? R.Y : j == 2 ? R.Z : R.T) = v;
+      });
+    }
+    for (auto& t : roles) t.join();
+    pt_out(out + 88 * i, R);
+  }
+}
 }
 """
 
@@ -184,12 +326,12 @@ def lib(tmp_path_factory):
     (d / "bindings.cpp").write_text(BINDINGS)
     so = d / "libfield32.so"
     subprocess.run([gxx, "-std=c++20", "-O1", "-Wno-unknown-pragmas", "-shared",
-                    "-fPIC", f"-I{d}", f"-I{CSRC}", "-o", str(so),
+                    "-fPIC", "-pthread", f"-I{d}", f"-I{CSRC}", "-o", str(so),
                     str(d / "bindings.cpp")], check=True)
     lib = ctypes.CDLL(str(so))
     p = ctypes.c_void_p
     for name, nargs in (("f32_mul", 3), ("f32_add", 3), ("f32_sub", 3),
-                        ("f32_sqr", 2), ("f32_from_limbs", 2),
+                        ("f32_sqr", 2), ("f32_half", 2), ("f32_from_limbs", 2),
                         ("f32_to_limbs", 2), ("f32_padd", 4)):
         fn = getattr(lib, name)
         fn.argtypes = [p] * nargs + [ctypes.c_int]
@@ -197,7 +339,12 @@ def lib(tmp_path_factory):
     i = ctypes.c_int
     for name, argtypes in (("f32_consts", [p]),
                            ("f32_points", [i, p, p, p, i]),
-                           ("f32_ladder", [p, p, i, i, i, p, i])):
+                           ("f32_ladder", [p, p, i, i, i, p, i]),
+                           ("f32_mod_consts", [i, p]),
+                           ("f32_sqr_sos", [i, p, p, i]),
+                           ("f32r_op", [i, p, p, p, i]),
+                           ("f32_pow", [i, p, p, i, p, i]),
+                           ("f32_quad", [i, p, p, p, i])):
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = None
     return lib
@@ -469,3 +616,145 @@ def test_ladder_lanes_match_plain_and_oracle(lib, lazy_points, width, signed):
         assert o.point_eq(_point_of(row), want)
     if signed:
         assert _recoded(win[-1], width) == -1
+
+
+# --- the second modulus: r ---------------------------------------------------
+
+
+@pytest.mark.parametrize("spec", ["p", "r"])
+def test_moduli_constants_match_the_oracle(lib, spec):
+    """R, R^2, R^4 mod m and -m^-1 mod 2^32 as the header holds them, for
+    ModP and ModR."""
+    m = P if spec == "p" else o.R
+    got = np.zeros(25, dtype=np.uint32)
+    lib.f32_mod_consts(int(spec == "r"), _ptr(got))
+    assert _ints(got[:24].reshape(3, 8)) == [R % m, R * R % m, pow(R, 4, m)]
+    assert int(got[24]) == (-pow(m, -1, 1 << 32)) % (1 << 32)
+
+
+def _r_operands():
+    rng = np.random.default_rng(86)
+    edges = [0, 1, 2, o.R - 1, o.R - 2, (1 << 249) - 1, 1 << 249, R % o.R,
+             R * R % o.R]
+    rand = [int.from_bytes(rng.bytes(32), "little") % o.R for _ in range(40)]
+    return edges + rand, list(reversed(edges)) + rand[::-1]
+
+
+@pytest.mark.parametrize("op", ["mul", "sqr", "add", "sub", "half"])
+def test_field_ops_mod_r_match_the_oracle(lib, op):
+    """The core's multiply, square, add, subtract and halving modulo r, in
+    Montgomery form (v R mod r)."""
+    r = o.R
+    a, b = _r_operands()
+    want = {"mul": [x * y % r for x, y in zip(a, b)],
+            "sqr": [x * x % r for x in a],
+            "add": [(x + y) % r for x, y in zip(a, b)],
+            "sub": [(x - y) % r for x, y in zip(a, b)],
+            "half": [x * pow(2, -1, r) % r for x in a]}[op]
+    mont = [np.ascontiguousarray(_words([v * R % r for v in vals])) for vals in (a, b)]
+    out = np.zeros((len(a), 8), dtype=np.uint32)
+    code = ["mul", "sqr", "add", "sub", "half"].index(op)
+    lib.f32r_op(code, _ptr(mont[0]), _ptr(mont[1]), _ptr(out), len(a))
+    assert _ints(out) == [w * R % r for w in want]
+
+
+def test_field_half_mod_p_matches_the_oracle(lib, operands):
+    """fe_half modulo p (k_combine's 4-way addition halves B' - A' and
+    B' + A'), in Montgomery form."""
+    a, _ = operands
+    got = _ints(_call(lib, "f32_half", _mont(a), out_shape=(len(a), 8)))
+    assert got == [x * pow(2, -1, P) % P * R % P for x in a]
+
+
+@pytest.mark.parametrize("spec", ["p", "r"])
+def test_sos_square_matches_the_oracle(lib, operands, spec):
+    """fe_sq_sos, the dedicated square of k_pow and k_combine, modulo p and
+    r, in Montgomery form, edge values included."""
+    a = operands[0] if spec == "p" else _r_operands()[0]
+    m = P if spec == "p" else o.R
+    mont = np.ascontiguousarray(_words([v * R % m for v in a]))
+    out = np.zeros((len(a), 8), dtype=np.uint32)
+    lib.f32_sqr_sos(int(spec == "r"), _ptr(mont), _ptr(out), len(a))
+    assert _ints(out) == [v * v % m * R % m for v in a]
+
+
+def test_limbs_to_core_and_back_mod_r(lib):
+    """22 x 12 limbs of any sign and size -> v R mod r -> canonical limbs
+    mod r."""
+    rng = np.random.default_rng(87)
+    limbs = _lazy_limbs(rng, 20)
+    vals = [sum(int(x) << (12 * k) for k, x in enumerate(row)) % o.R for row in limbs]
+    mont = np.zeros((len(limbs), 8), dtype=np.uint32)
+    lib.f32r_op(5, _ptr(limbs), _ptr(mont), _ptr(mont), len(limbs))
+    assert _ints(mont) == [v * R % o.R for v in vals]
+    back = np.zeros((len(limbs), 22), dtype=np.int32)
+    lib.f32r_op(6, _ptr(mont), _ptr(mont), _ptr(back), len(limbs))
+    assert back.tolist() == [o.int_to_limbs(v) for v in vals]
+
+
+# --- k_pow's lane body ----------------------------------------------------------
+
+
+def _pow_inputs(spec):
+    """Signed lazy limbs as the limb engine hands them to K2 (a product
+    minus a factor: semi, maybe negative), and the extremes of int32."""
+    rng = np.random.default_rng(88)
+    m = P if spec is tl.FIELD else o.R
+    a, b = ([int.from_bytes(rng.bytes(32), "little") % m for _ in range(6)]
+            for _ in range(2))
+    ta = torch.tensor(np.stack([o.int_to_limbs(v) for v in a]).astype(np.int32))
+    tb = torch.tensor(np.stack([o.int_to_limbs(v) for v in b]).astype(np.int32))
+    semi = tl.sub(fk.mul_tiled_ref(ta, tb, spec), ta).numpy()
+    extremes = _lazy_limbs(rng, 1)[9:13]
+    return semi, extremes
+
+
+@pytest.mark.parametrize("e", ["inv", "legendre", "sqrt", "sqrt_ratio", "r-2"])
+def test_pow_lane_matches_plain_and_oracle(lib, e):
+    """pow32.cuh's lane body for each exponent of the chains mod p and for
+    r - 2 mod r: on the limb engine's signed lazy limbs, canonical limbs
+    equal to pow_tiled_ref's; on any int32 limbs, a^e equal to the
+    oracle's."""
+    from zerocaf_tpu_torch import constants as TC
+    spec = tl.SCALAR if e == "r-2" else tl.FIELD
+    m = o.R if e == "r-2" else P
+    exp = {"inv": TC.EXP_INV, "legendre": TC.EXP_LEGENDRE, "sqrt": TC.EXP_SQRT,
+           "sqrt_ratio": TC.EXP_SQRT_RATIO, "r-2": o.R - 2}[e]
+    digits = np.array(fk.pow_digits(exp), dtype=np.int32)
+    semi, extremes = _pow_inputs(spec)
+    for limbs in (semi, extremes):
+        out = np.zeros(limbs.shape, dtype=np.int32)
+        lib.f32_pow(int(spec is tl.SCALAR), _ptr(np.ascontiguousarray(limbs)),
+                    _ptr(digits), len(digits), _ptr(out), len(limbs))
+        vals = [o.limbs_to_int(row) % m for row in limbs]
+        assert [o.limbs_to_int(row) for row in out] == [pow(v, exp, m) for v in vals]
+        assert all(0 <= x < 4096 for x in out.flatten())
+    plain = fk.pow_tiled_ref(torch.tensor(semi), exp, spec)
+    lib.f32_pow(int(spec is tl.SCALAR), _ptr(np.ascontiguousarray(semi)),
+                _ptr(digits), len(digits), _ptr(out := np.zeros(semi.shape, np.int32)),
+                len(semi))
+    assert np.array_equal(out, tl.canonical(plain, spec).numpy())
+
+
+# --- k_combine's four-thread point operations ----------------------------------
+
+
+@pytest.mark.parametrize("op", ["padd_read", "padd_held", "pdbl"])
+def test_quad_formulas_equal_the_core(lib, lazy_points, op):
+    """quad32.cuh's 4-way addition (Q's operands read from memory, or held
+    by the quad with its d T a round of its own) and doubling, the four
+    roles run as four host threads: equal to padd_ext / pdbl field value
+    for field value (canonical limbs), and to the oracle."""
+    la, lb, a, b = lazy_points
+    code = ["padd_read", "padd_held", "pdbl"].index(op)
+    got = np.zeros(la.shape, dtype=np.int32)
+    lib.f32_quad(code, _ptr(np.ascontiguousarray(la)), _ptr(np.ascontiguousarray(lb)),
+                 _ptr(got), la.shape[0])
+    if op == "pdbl":
+        assert np.array_equal(got, _points(lib, 0, la, la))
+        assert [_point_of(r) for r in got] == [tuple(c % P for c in o.point_double(p))
+                                               for p in a]
+    else:
+        assert np.array_equal(got, _points(lib, 4, la, lb))
+        assert all(o.point_eq(_point_of(r), o.point_add(p, q))
+                   for r, p, q in zip(got, a, b))

@@ -3,11 +3,12 @@
 On the CPU the plain PyTorch versions are held against the JAX package's
 plain paths (which tests/test_pallas.py pins bit-exact to the Pallas
 kernels) and the oracle.  The CUDA kernels are held against their plain
-versions by the tests marked ``cuda``: they skip without a card.  K1 and K2
-compute in their plain versions' 22 x 12 limb algebra and are compared limb
-for limb; the ladders (K3, K4, K10) compute on the 8 x 32-bit core and
-write canonical limbs, compared with the plain versions' canonical limbs.
-Every comparison is exact (integer arithmetic)."""
+versions by the tests marked ``cuda``: they skip without a card.  K1
+computes in its plain version's 22 x 12 limb algebra and is compared limb
+for limb; the power chain (K2) and the ladders (K3, K4, K10) compute on the
+8 x 32-bit core and write canonical limbs, compared with the plain
+versions' canonical limbs.  Every comparison is exact (integer
+arithmetic)."""
 
 import jax
 import jax.numpy as jnp
@@ -253,7 +254,23 @@ def test_mul_tiled_kernel_equals_plain(cuda, elems, spec):
 @pytest.mark.parametrize("e", CHAIN + SHORT, ids=lambda e: hex(e)[:12])
 def test_pow_tiled_kernel_equals_plain(cuda, elems, e):
     a = torch.tensor(np.tile(elems["semi"], (25, 1)), device=cuda)
-    assert torch.equal(fk.pow_tiled(a, e), fk.pow_tiled_ref(a, e))
+    assert torch.equal(fk.pow_tiled(a, e), tl.canonical(fk.pow_tiled_ref(a, e), tl.FIELD))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 129, 1000])
+def test_pow_tiled_kernel_mod_r_and_ragged_lanes(cuda, elems, lanes):
+    """K2 modulo r (r - 2, the scalar inverse) and modulo p at lane counts
+    that are not a multiple of the kernel's block: canonical limbs equal to
+    the plain version's, and the oracle's powers."""
+    rows = np.resize(elems["semi"], (lanes, 22))
+    a = torch.tensor(rows, device=cuda)
+    for e, spec, m in ((o.R - 2, tl.SCALAR, o.R), (JC.EXP_SQRT_RATIO, tl.FIELD, o.P)):
+        got = fk.pow_tiled(a, e, spec)
+        assert torch.equal(got, tl.canonical(fk.pow_tiled_ref(a, e, spec), spec))
+        vals = [o.limbs_to_int(r) % m for r in rows]
+        assert [o.limbs_to_int(r) for r in got.cpu().numpy()] == [pow(v, e, m)
+                                                                  for v in vals]
 
 
 @pytest.mark.cuda

@@ -5,10 +5,10 @@ On the CPU the kernels' plain versions are held against the JAX package's
 XLA paths (the scan route, ``_add``, ``_combine_windows``) and the oracle;
 the Pallas MSM kernels are not run here.  The CUDA kernels are held against
 their plain versions by the tests marked ``cuda``: they skip without a
-card.  K5 and K7's kernel write canonical limbs (the 8 x 32-bit core), so
-they are compared with their plain versions' canonical limbs; K8 limb for
-limb.  Every comparison is exact: canonical limbs or bytes, or projective
-equality through the oracle."""
+card.  K5, K7's kernel and K8 write canonical limbs (the 8 x 32-bit core),
+so they are compared with their plain versions' canonical limbs.  Every
+comparison is exact: canonical limbs or bytes, or projective equality
+through the oracle."""
 
 import importlib
 
@@ -300,6 +300,28 @@ def test_combine_tables_ref_matches_jax_combine_windows():
     assert _wire(got) == [o.ristretto_compress(o.scalar_mul(o.BASEPOINT, total))]
 
 
+def test_combine_tables_tail_matches_jax_horner_stride():
+    """K8's strided form (c ndev doublings a window, then tail doublings),
+    the window-sharded combine of one rank: equal to the JAX package's
+    _horner(_bucket_totals(...), c, stride=ndev) doubled tail times, and to
+    the oracle."""
+    rng = np.random.default_rng(76)
+    nwin, c, ndev, rank = 3, 2, 3, 2
+    nb = (1 << (c - 1)) + 1
+    ks = _rand_scalars(rng, nwin * nb)
+    pts = [o.scalar_mul(o.BASEPOINT, k) for k in ks]
+    tables = [x.reshape(nwin, nb, 22) for x in _coords(pts)]
+    got = mk.combine_tables(_tpt(tables), nb, nwin, c * ndev, tail=c * rank)
+    want = jmsm._horner(jmsm._bucket_totals(tuple(jnp.asarray(t) for t in tables), nb),
+                        c, stride=ndev)
+    for _ in range(c * rank):
+        want = jed._double(want)
+    assert _wire(got) == _wire(_tpt(want))
+    total = sum((1 << (c * (ndev * w + rank))) * b * ks[w * nb + b]
+                for w in range(nwin) for b in range(1, nb)) % o.R
+    assert _wire(got) == [o.ristretto_compress(o.scalar_mul(o.BASEPOINT, total))]
+
+
 # --- the slice: Engine.msm --------------------------------------------------
 
 
@@ -452,7 +474,24 @@ def test_combine_tables_kernel_equals_plain(cuda, nwin, c):
     tables = tuple(t.to(cuda).reshape(nwin, nb, 22) for t in _tpt(_coords(pts)))
     got = mk.combine_tables(tables, nb, nwin, c)
     want = mk.combine_tables_ref(tables, nb, nwin, c)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, tl.canonical(w, tl.FIELD)) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_combine_tables_kernel_strided(cuda):
+    """K8 as one rank's share of the window-sharded combine: 11 windows,
+    c ndev = 24 doublings a window, tail 18 (rank 3 of 4 at c = 6), on
+    tables of signed lazy limbs; canonical limbs equal to the plain
+    version's."""
+    rng = np.random.default_rng(75)
+    nwin, nb, c, tail = 11, 33, 24, 18
+    pts = [o.scalar_mul(o.BASEPOINT, k) for k in _rand_scalars(rng, nwin * nb)]
+    coords = _coords(pts)
+    coords[0], coords[3] = -coords[0], -coords[3]       # -P, as negative limbs
+    tables = tuple(t.to(cuda).reshape(nwin, nb, 22) for t in _tpt(coords))
+    got = mk.combine_tables(tables, nb, nwin, c, tail=tail)
+    want = mk.combine_tables_ref(tables, nb, nwin, c, tail=tail)
+    assert all(torch.equal(g, tl.canonical(w, tl.FIELD)) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda

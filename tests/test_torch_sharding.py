@@ -11,9 +11,13 @@ tests/test_sharding.py runs it).  That takes 30-50 s of XLA compile for
 each configuration on a CPU, so the JAX package is held against the port
 on one scan configuration; the port's every configuration and rank count
 is held against the oracle, and the JAX package's own tests hold its
-configurations equal to its single-device msm and the oracle.  Every
-comparison is exact: canonical bytes."""
+configurations equal to its single-device msm and the oracle.  The
+window-sharded combine of one rank (``_sharded_combine``, K8 with a tail)
+is held against the JAX package's steps of its ``_sharded_combine`` run
+eagerly, without the 100 s compile of its shard_map.  Every comparison is
+exact: canonical bytes."""
 
+import importlib
 import json
 import os
 import socket
@@ -35,6 +39,7 @@ from zerocaf_tpu.parallel import batch_sharding as jbatch_sharding
 from zerocaf_tpu.parallel import checkpoint as jckpt
 from zerocaf_tpu.parallel import make_mesh as jmake_mesh
 from zerocaf_tpu.parallel import msm_sharded as jmsm_sharded
+from zerocaf_tpu.models import edwards as jed
 from zerocaf_tpu_torch import EdwardsPoint, Scalar
 from zerocaf_tpu_torch.config import MeshConfig
 from zerocaf_tpu_torch.models import ristretto as tri
@@ -43,18 +48,25 @@ from zerocaf_tpu_torch.parallel import (Communicator, batch_sharding,
                                         make_mesh, msm, msm_sharded, replicated)
 from zerocaf_tpu_torch.parallel.mesh import Mesh
 
+jmsm = importlib.import_module("zerocaf_tpu.parallel.msm")
+tmsm = importlib.import_module("zerocaf_tpu_torch.parallel.msm")
+
 REPO = Path(__file__).resolve().parent.parent
 WORKER = REPO / "tests" / "torch_gloo_worker.py"
 N = 16
 WORLDS = (4, 2, 1)
 # name -> msm_sharded keywords; shard_combine at c = 6 shares 42 windows
-# over 4 ranks (padded to 44) and 2 ranks
+# over 4 ranks (padded to 44) and 2 ranks.  Every shard_combine
+# configuration runs each rank's share of the combine through K8
+# (combine_tables, its plain version here) with c * ndev doublings a window
+# and c * rank after it.
 CONFIGS = {
     "scan_c8": dict(c=8),
     "unsigned_c4": dict(c=4, signed=False),
     "shard_combine_c6": dict(c=6, shard_combine=True),
     "dense_c4": dict(c=4, dense=True),
     "dense_shard_combine_c4": dict(c=4, dense=True, shard_combine=True),
+    "unsigned_shard_combine_c4": dict(c=4, signed=False, shard_combine=True),
 }
 JAX_CONFIG = "unsigned_c4"
 
@@ -200,6 +212,58 @@ def test_batch_sharding_gives_each_rank_its_block():
     assert torch.equal(torch.cat(blocks), x)
     with pytest.raises(ValueError, match="divide"):
         batch_sharding(mesh)(x[:5])
+
+
+class _GatheredComm:
+    """Rank ``rank`` of ``ndev`` whose all_gather of bucket tables returns
+    every rank's tables, given up front."""
+
+    def __init__(self, tables, rank):
+        self.tables, self.rank = tables, rank
+
+    def axis_index(self):
+        return self.rank
+
+    def all_gather_points(self, mine):
+        return self.tables
+
+
+@pytest.mark.parametrize("rank", [0, 3])
+def test_sharded_combine_matches_jax_steps_and_oracle(rank):
+    """One rank's share of the window-sharded combine, through K8's plain
+    version (c * ndev doublings a window, c * rank after them): equal to
+    the JAX package's _sharded_combine steps for that rank (the per-window
+    sum over ranks, _bucket_totals, _horner with stride ndev, c * rank
+    doublings) and to the oracle; 7 windows over 4 ranks pad to 8."""
+    rng = np.random.default_rng(85)
+    ndev, c, nwin = 4, 2, 7
+    nb = (1 << (c - 1)) + 1
+    k = -(-nwin // ndev)
+    ks = [[int.from_bytes(rng.bytes(32), "little") % o.R for _ in range(nwin * nb)]
+          for _ in range(ndev)]
+    ident = [0, 1, 1, 0]
+    # every rank's tables, padded to k * ndev windows with identities
+    g = np.zeros((4, ndev, k * ndev, nb, 22), np.int32)
+    for d in range(ndev):
+        for i, kk in enumerate(ks[d]):
+            p = o.scalar_mul(o.BASEPOINT, kk)
+            for j in range(4):
+                g[j, d, i // nb, i % nb] = o.int_to_limbs(p[j] % o.P)
+    g[1:3, :, nwin:, :, 0] = 1
+    assert ident == [int(g[j, 0, -1, 0, 0]) for j in range(4)]
+    got = tmsm._sharded_combine(tuple(torch.tensor(g[j, rank, :nwin]) for j in range(4)),
+                                c, nb, _GatheredComm(tuple(torch.tensor(x) for x in g),
+                                                     rank), ndev)
+    loc = jmsm._tree_reduce(tuple(jnp.asarray(x[:, rank::ndev]) for x in g))
+    want = jmsm._horner(jmsm._bucket_totals(loc, nb), c, stride=ndev)
+    for _ in range(c * rank):
+        want = jed._double(want)
+    got_wire = tri._compress(got).numpy().tobytes()
+    assert got_wire == tri._compress(tuple(torch.tensor(np.asarray(x))
+                                           for x in want)).numpy().tobytes()
+    total = sum((1 << (c * w)) * b * ks[d][w * nb + b] for d in range(ndev)
+                for w in range(rank, nwin, ndev) for b in range(1, nb)) % o.R
+    assert got_wire == o.ristretto_compress(o.scalar_mul(o.BASEPOINT, total))
 
 
 # --- checkpoints ---------------------------------------------------------------

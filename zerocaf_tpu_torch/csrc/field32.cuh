@@ -1,25 +1,30 @@
-// The 8 x 32-bit field core of the Hopper kernels on the hot paths: field
-// arithmetic over p = 2^252 + delta (delta < 2^125) in Montgomery form, and
-// the Edwards formulas built from it.  k_bucket_accum (K7, K9, K11, K12;
-// csrc/msm_kernels.cu) and k_padd (K5) and k_ladder (K3, K4, K10;
-// csrc/field_kernels.cu) compute on it; k_mul, k_pow, k_comb and k_combine
-// keep the 22 x 12-bit limbs of field.cuh.
+// The 8 x 32-bit field core of the Hopper kernels: arithmetic modulo m =
+// 2^(224 + s) + delta (delta < 2^125, s = 28 for the field prime p, s = 25
+// for the group order r) in Montgomery form, and the Edwards formulas over
+// p built from it.  k_bucket_accum (K7, K9, K11, K12) and k_combine (K8;
+// csrc/msm_kernels.cu), and k_padd (K5), k_ladder (K3, K4, K10) and k_pow
+// (K2, both moduli; csrc/pow32.cuh) (csrc/field_kernels.cu) compute on it;
+// k_mul and k_comb keep the 22 x 12-bit limbs of field.cuh.
 //
 // Why 32-bit words: Hopper multiplies 32 x 32 -> 64 bits (IMAD.WIDE.U32),
 // which the TPU lacked; that lack is the only reason for the 12-bit radix.
 // A field element is 8 uint32 words -- an extended point 32 registers, not
 // 88 -- and a multiply is 64 word products plus the reduction.
 //
-// Why Montgomery (R = 2^256) and not a fold on 2^252 == -delta: p's words
-// are (delta_0..3, 0, 0, 0, 2^28), so the CIOS reduction step m * p costs
-// 4 word products and a shift, 8 x 5 in all, and every intermediate stays
+// Why Montgomery (R = 2^256) and not a fold on 2^252 == -delta: m's words
+// are (delta_0..3, 0, 0, 0, 2^s), so the CIOS reduction step q * m costs 4
+// word products and a shift, 8 x 5 in all, and every intermediate stays
 // unsigned.  The fold would take 9 x 4 + 5 x 4 products on a signed
 // remainder.  Montgomery form costs one conversion at each edge of the
-// kernel (to_mont / to_limbs), which a bucket table or a ladder amortizes
-// over all its point operations.
+// kernel (to_mont / to_limbs), which a bucket table, a ladder or a power
+// chain amortizes over all its multiplies.
 //
-// Invariant: every Fe holds a value in [0, p), in Montgomery form a R mod
-// p.  mul's CIOS output is below 2p for inputs below p (p < R / 8) and
+// The modulus is a template parameter, a struct of its constants (ModP,
+// ModR below); every function takes ModP by default, so the kernels on p
+// name none.  The point formulas are over p only.
+//
+// Invariant: every Fe holds a value in [0, m), in Montgomery form a R mod
+// m.  mul's CIOS output is below 2m for inputs below m (m < R / 8) and
 // takes one conditional subtraction, as add and sub do; the kernels'
 // outputs are therefore canonical with no further work.
 //
@@ -40,11 +45,6 @@ namespace zc32 {
 constexpr int NW = 8;                  // words per element
 constexpr int NL = 22;                 // limbs of the 22 x 12-bit boundary
 constexpr int LW = 12;                 // radix bits of those limbs
-
-// p = 2^252 + delta, little-endian words; words 4..6 are zero.
-constexpr uint32_t P0 = 0x5cf5d3edu, P1 = 0x5812631au, P2 = 0xa2f79cd6u,
-                   P3 = 0x14def9deu, P7 = 0x10000000u;
-constexpr uint32_t PINV = 0x12547e1bu;  // -p^-1 mod 2^32
 
 struct Fe {
   uint32_t w[NW];
@@ -77,32 +77,65 @@ __host__ __device__ __forceinline__ const Fe& coord(const Pt& p, int c) {
   return c == 0 ? p.X : c == 1 ? p.Y : c == 2 ? p.Z : p.T;
 }
 
-__host__ __device__ __forceinline__ uint32_t p_word(int i) {
-  return i == 0 ? P0 : i == 1 ? P1 : i == 2 ? P2 : i == 3 ? P3
-       : i == 7 ? P7 : 0u;
-}
+// A modulus m = 2^(224 + TOP) + delta: its words are (W0..W3, 0, 0, 0,
+// 2^TOP).  INV = -m^-1 mod 2^32; one(i), r2(i) and r4(i) are the words of
+// R mod m (the Montgomery one), R^2 mod m (to_mont) and R^4 mod m (a
+// Montgomery product with it lifts x R^-1 to x R^2: k_padd).
+struct ModP {                          // p = 2^252 + delta
+  static constexpr uint32_t W0 = 0x5cf5d3edu, W1 = 0x5812631au,
+                            W2 = 0xa2f79cd6u, W3 = 0x14def9deu;
+  static constexpr int TOP = 28;
+  static constexpr uint32_t INV = 0x12547e1bu;
+  static __host__ __device__ __forceinline__ uint32_t one(int i) {
+    constexpr uint32_t v[NW] = {0x8d98951du, 0xd6ec3174u, 0x737dcf70u,
+                                0xc6ef5bf4u, 0xfffffffeu, 0xffffffffu,
+                                0xffffffffu, 0x0fffffffu};
+    return v[i];
+  }
+  static __host__ __device__ __forceinline__ uint32_t r2(int i) {
+    constexpr uint32_t v[NW] = {0x449c0f01u, 0xa40611e3u, 0x68859347u,
+                                0xd00e1ba7u, 0x17f5be65u, 0xceec73d2u,
+                                0x7c309a3du, 0x0399411bu};
+    return v[i];
+  }
+  static __host__ __device__ __forceinline__ uint32_t r4(int i) {
+    constexpr uint32_t v[NW] = {0x42419a0du, 0x3a3dc222u, 0x023493f7u,
+                                0x9d31cab2u, 0xb6870058u, 0xe7faf80eu,
+                                0x5a45ffd7u, 0x09dc924eu};
+    return v[i];
+  }
+};
 
-// R^2 mod p (to_mont) and R mod p (the Montgomery one).
-__host__ __device__ __forceinline__ uint32_t r2_word(int i) {
-  constexpr uint32_t v[NW] = {0x449c0f01u, 0xa40611e3u, 0x68859347u,
-                              0xd00e1ba7u, 0x17f5be65u, 0xceec73d2u,
-                              0x7c309a3du, 0x0399411bu};
-  return v[i];
-}
+struct ModR {                          // r = 2^249 + delta_r
+  static constexpr uint32_t W0 = 0x755fc863u, W1 = 0x6ab4036fu,
+                            W2 = 0x822fd593u, W3 = 0x0ae6c74du;
+  static constexpr int TOP = 25;
+  static constexpr uint32_t INV = 0x84a706b5u;
+  static __host__ __device__ __forceinline__ uint32_t one(int i) {
+    constexpr uint32_t v[NW] = {0xc57b96e3u, 0x10b24bb4u, 0x6a450bdeu,
+                                0x9783208cu, 0xfffffffau, 0xffffffffu,
+                                0xffffffffu, 0x01ffffffu};
+    return v[i];
+  }
+  static __host__ __device__ __forceinline__ uint32_t r2(int i) {
+    constexpr uint32_t v[NW] = {0x050c31b2u, 0xfcbbafc0u, 0x48fd51d3u,
+                                0x0d536753u, 0x98d542e5u, 0x0509b170u,
+                                0xd0a04e90u, 0x01e73226u};
+    return v[i];
+  }
+  static __host__ __device__ __forceinline__ uint32_t r4(int i) {
+    constexpr uint32_t v[NW] = {0x364b0effu, 0xfeedb71eu, 0x5c9e4192u,
+                                0x28af3a50u, 0x79210933u, 0x5a1d5183u,
+                                0xdac3a770u, 0x017c5642u};
+    return v[i];
+  }
+};
 
-// R^4 mod p: a Montgomery product with it lifts x R^-1 to x R^2 (k_padd).
-__host__ __device__ __forceinline__ uint32_t r4_word(int i) {
-  constexpr uint32_t v[NW] = {0x42419a0du, 0x3a3dc222u, 0x023493f7u,
-                              0x9d31cab2u, 0xb6870058u, 0xe7faf80eu,
-                              0x5a45ffd7u, 0x09dc924eu};
-  return v[i];
-}
-
-__host__ __device__ __forceinline__ uint32_t one_word(int i) {
-  constexpr uint32_t v[NW] = {0x8d98951du, 0xd6ec3174u, 0x737dcf70u,
-                              0xc6ef5bf4u, 0xfffffffeu, 0xffffffffu,
-                              0xffffffffu, 0x0fffffffu};
-  return v[i];
+// Word i of the modulus.
+template <class M>
+__host__ __device__ __forceinline__ uint32_t m_word(int i) {
+  return i == 0 ? M::W0 : i == 1 ? M::W1 : i == 2 ? M::W2 : i == 3 ? M::W3
+       : i == 7 ? 1u << M::TOP : 0u;
 }
 
 __host__ __device__ __forceinline__ Fe fe_zero() {
@@ -112,25 +145,27 @@ __host__ __device__ __forceinline__ Fe fe_zero() {
   return r;
 }
 
+template <class M = ModP>
 __host__ __device__ __forceinline__ Fe fe_one() {
   Fe r;
 #pragma unroll
-  for (int i = 0; i < NW; ++i) r.w[i] = one_word(i);
+  for (int i = 0; i < NW; ++i) r.w[i] = M::one(i);
   return r;
 }
 
-// r = x - p if x >= p (x < 2p, given as 8 words and a top word hi).
+// r = x - m if x >= m (x < 2m, given as 8 words and a top word hi).
+template <class M = ModP>
 __host__ __device__ __forceinline__ Fe sub_p_if_geq(const uint32_t (&x)[NW],
                                                     uint32_t hi) {
   Fe d;
   uint64_t borrow = 0;
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
-    const uint64_t t = (uint64_t)x[i] - p_word(i) - borrow;
+    const uint64_t t = (uint64_t)x[i] - m_word<M>(i) - borrow;
     d.w[i] = (uint32_t)t;
     borrow = (t >> 32) & 1;
   }
-  // x >= p exactly when the subtraction did not borrow past the top word
+  // x >= m exactly when the subtraction did not borrow past the top word
   const uint32_t keep = 0u - ((uint32_t)(hi == 0) & (uint32_t)borrow);
   Fe r;
 #pragma unroll
@@ -138,7 +173,8 @@ __host__ __device__ __forceinline__ Fe sub_p_if_geq(const uint32_t (&x)[NW],
   return r;
 }
 
-// a + b mod p.
+// a + b mod m.
+template <class M = ModP>
 __host__ __device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
   uint32_t s[NW];
   uint64_t c = 0;
@@ -147,10 +183,11 @@ __host__ __device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
     c = (uint64_t)a.w[i] + b.w[i] + (c >> 32);
     s[i] = (uint32_t)c;
   }
-  return sub_p_if_geq(s, (uint32_t)(c >> 32));
+  return sub_p_if_geq<M>(s, (uint32_t)(c >> 32));
 }
 
-// a - b mod p: add p back where the subtraction borrowed.
+// a - b mod m: add m back where the subtraction borrowed.
+template <class M = ModP>
 __host__ __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
   Fe r;
   uint64_t borrow = 0;
@@ -164,31 +201,52 @@ __host__ __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
   uint64_t c = 0;
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
-    c = (uint64_t)r.w[i] + (p_word(i) & mask) + (c >> 32);
+    c = (uint64_t)r.w[i] + (m_word<M>(i) & mask) + (c >> 32);
     r.w[i] = (uint32_t)c;
   }
   return r;
 }
 
+template <class M = ModP>
 __host__ __device__ __forceinline__ Fe fe_neg(const Fe& a) {
-  return fe_sub(fe_zero(), a);
+  return fe_sub<M>(fe_zero(), a);
 }
 
-// One CIOS step of the Montgomery product: t += a b, then t += m p with
-// m = t_0 (-p^-1) mod 2^32 (t_0 becomes 0), and t shifts down one word.
-// t has NW + 2 words and stays below 2^288 (p < 2^253 and t < 2p before
-// the step), so nothing carries out of t_8.  The zero words of p are
-// skipped, and m * P7 is a shift.
+// a / 2 mod m: a, plus m where a is odd, shifted down one bit (a + m <
+// 2m < 2^256, so nothing carries out).
+template <class M = ModP>
+__host__ __device__ __forceinline__ Fe fe_half(const Fe& a) {
+  const uint32_t odd = 0u - (a.w[0] & 1u);
+  uint32_t s[NW];
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    c = (uint64_t)a.w[i] + (m_word<M>(i) & odd) + (c >> 32);
+    s[i] = (uint32_t)c;
+  }
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < NW - 1; ++i) r.w[i] = (s[i] >> 1) | (s[i + 1] << 31);
+  r.w[NW - 1] = s[NW - 1] >> 1;
+  return r;
+}
+
+// One CIOS step of the Montgomery product: t += a b, then t += q m with
+// q = t_0 (-m^-1) mod 2^32 (t_0 becomes 0), and t shifts down one word.
+// t has NW + 2 words and stays below 2^288 (m < 2^253 and t < 2m before
+// the step), so nothing carries out of t_8.  The zero words of m are
+// skipped, and q * 2^TOP, its top word's product, is a shift.
 //
 // On the card the step is PTX carry chains (the carry flag lives only
 // inside one asm statement): a word product becomes an IMAD and an
 // IMAD.HI that add with carry, where the C++ below costs an IMAD.WIDE.U32
 // and two or three adds and moves: 68 SASS instructions a step against
 // 76, in shorter dependences (the ladders ran 20 % faster on an H100,
-// PERF.md).  The host compiles the C++, which
-// tests/test_torch_field32_host.py holds against the oracle; the card's
-// step is held against the plain versions by the `cuda` tests and
-// chip_smoke.py.
+// PERF.md).  M's constants enter as immediates.  The host compiles the
+// C++, which tests/test_torch_field32_host.py holds against the oracle;
+// the card's step is held against the plain versions by the `cuda` tests
+// and chip_smoke.py.
+template <class M = ModP>
 __host__ __device__ __forceinline__ void mont_step(uint32_t (&t)[NW + 2],
                                                    const Fe& a, uint32_t b) {
 #ifdef __CUDA_ARCH__
@@ -212,8 +270,8 @@ __host__ __device__ __forceinline__ void mont_step(uint32_t (&t)[NW + 2],
       "madc.hi.cc.u32 %7, %15, %17, %7;\n\t"
       "madc.hi.u32    %8, %16, %17, %8;\n\t"
       "mul.lo.u32     m, %0, %18;\n\t"
-      "shl.b32        x, m, 28;\n\t"
-      "shr.u32        y, m, 4;\n\t"
+      "shl.b32        x, m, %23;\n\t"
+      "shr.u32        y, m, %24;\n\t"
       "mad.lo.cc.u32  %0, m, %19, %0;\n\t"
       "madc.lo.cc.u32 %1, m, %20, %1;\n\t"
       "madc.lo.cc.u32 %2, m, %21, %2;\n\t"
@@ -235,8 +293,9 @@ __host__ __device__ __forceinline__ void mont_step(uint32_t (&t)[NW + 2],
       : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
         "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8])
       : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]),
-        "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]), "r"(b), "n"(PINV), "n"(P0),
-        "n"(P1), "n"(P2), "n"(P3));
+        "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]), "r"(b), "n"(M::INV),
+        "n"(M::W0), "n"(M::W1), "n"(M::W2), "n"(M::W3), "n"(M::TOP),
+        "n"(32 - M::TOP));
 #pragma unroll
   for (int j = 0; j < NW; ++j) t[j] = t[j + 1];
   t[NW] = 0;
@@ -251,20 +310,20 @@ __host__ __device__ __forceinline__ void mont_step(uint32_t (&t)[NW + 2],
   t[NW] = (uint32_t)c;
   t[NW + 1] = (uint32_t)(c >> 32);
 
-  const uint32_t m = t[0] * PINV;
-  c = (uint64_t)m * P0 + t[0];                    // low word becomes 0
-  c = (uint64_t)m * P1 + t[1] + (c >> 32);
+  const uint32_t m = t[0] * M::INV;
+  c = (uint64_t)m * M::W0 + t[0];                 // low word becomes 0
+  c = (uint64_t)m * M::W1 + t[1] + (c >> 32);
   t[0] = (uint32_t)c;
-  c = (uint64_t)m * P2 + t[2] + (c >> 32);
+  c = (uint64_t)m * M::W2 + t[2] + (c >> 32);
   t[1] = (uint32_t)c;
-  c = (uint64_t)m * P3 + t[3] + (c >> 32);
+  c = (uint64_t)m * M::W3 + t[3] + (c >> 32);
   t[2] = (uint32_t)c;
 #pragma unroll
   for (int j = 4; j < 7; ++j) {
     c = (uint64_t)t[j] + (c >> 32);
     t[j - 1] = (uint32_t)c;
   }
-  c = ((uint64_t)m << 28) + t[7] + (c >> 32);     // m * P7
+  c = ((uint64_t)m << M::TOP) + t[7] + (c >> 32);   // m times the top word
   t[6] = (uint32_t)c;
   c = (uint64_t)t[NW] + (c >> 32);
   t[7] = (uint32_t)c;
@@ -272,13 +331,14 @@ __host__ __device__ __forceinline__ void mont_step(uint32_t (&t)[NW + 2],
 #endif
 }
 
-// Montgomery product a b R^-1 mod p by CIOS, one mont_step a word of b.
-// t stays below 2p.  The loop over b's words stays rolled (b's words
+// Montgomery product a b R^-1 mod m by CIOS, one mont_step a word of b.
+// t stays below 2m.  The loop over b's words stays rolled (b's words
 // shift down one a step, so every index is static): unrolled, a multiply
 // is some 600 instructions, and a kernel's dozens of inlined multiplies
 // outgrew the instruction cache and the registers -- k_padd's
 // lane-reduce round took 4.3 ms unrolled and 1.9 rolled, k_ladder spilled
 // 52 bytes unrolled and none rolled (on an H100, PERF.md).
+template <class M = ModP>
 __host__ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
   uint32_t t[NW + 2];
 #pragma unroll
@@ -291,31 +351,100 @@ __host__ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
     const uint32_t bi = bw[0];
 #pragma unroll
     for (int j = 0; j < NW - 1; ++j) bw[j] = bw[j + 1];
-    mont_step(t, a, bi);
+    mont_step<M>(t, a, bi);
   }
   uint32_t lo[NW];
 #pragma unroll
   for (int j = 0; j < NW; ++j) lo[j] = t[j];
-  return sub_p_if_geq(lo, t[NW]);
+  return sub_p_if_geq<M>(lo, t[NW]);
 }
 
-// Montgomery square: the multiply.  A square by SOS (each cross product
-// once, 76 word products against 104) held 17 words of its product at
-// once; in the ladder's doublings, four of them side by side spilled more
-// registers and ran slower than four multiplies.
-__host__ __device__ __forceinline__ Fe fe_sq(const Fe& a) { return fe_mul(a, a); }
+// Montgomery square: the multiply.  A square by SOS (fe_sq_sos, below)
+// holds the 16 words of its product at once; in the ladder's doublings,
+// four of them side by side spilled more registers and ran slower than
+// four multiplies.
+template <class M = ModP>
+__host__ __device__ __forceinline__ Fe fe_sq(const Fe& a) {
+  return fe_mul<M>(a, a);
+}
+
+// Montgomery square by SOS: the 28 cross products once, doubled, the 8
+// squares, then 8 reduction steps (4 word products and a shift each) with
+// a delayed carry word, unrolled C++: 36 word products and the reduction's
+// 32, against the multiply's 104.  The result stays below 2m.  It holds
+// the 16 words of the square at once, so only the kernels with registers
+// to spare take it: k_pow's chain (248 of its ~310 operations) and
+// k_combine's doublings ran 21 % and 9 % faster with it than with fe_sq
+// (on an H100, PERF.md).
+template <class M = ModP>
+__host__ __device__ __forceinline__ Fe fe_sq_sos(const Fe& a) {
+  uint32_t t[2 * NW];
+#pragma unroll
+  for (int k = 0; k < 2 * NW; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NW - 1; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < NW; ++j) {
+      c = (uint64_t)a.w[i] * a.w[j] + t[i + j] + (c >> 32);
+      t[i + j] = (uint32_t)c;
+    }
+    t[i + NW] = (uint32_t)(c >> 32);
+  }
+#pragma unroll
+  for (int k = 2 * NW - 1; k > 0; --k) t[k] = (t[k] << 1) | (t[k - 1] >> 31);
+  t[0] = 0;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint64_t s = (uint64_t)a.w[i] * a.w[i];
+    c = (uint64_t)t[2 * i] + (uint32_t)s + (c >> 32);
+    t[2 * i] = (uint32_t)c;
+    c = (uint64_t)t[2 * i + 1] + (s >> 32) + (c >> 32);
+    t[2 * i + 1] = (uint32_t)c;
+  }
+  uint32_t top = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t m = t[i] * M::INV;
+    c = (uint64_t)m * M::W0 + t[i];
+    c = (uint64_t)m * M::W1 + t[i + 1] + (c >> 32);
+    t[i + 1] = (uint32_t)c;
+    c = (uint64_t)m * M::W2 + t[i + 2] + (c >> 32);
+    t[i + 2] = (uint32_t)c;
+    c = (uint64_t)m * M::W3 + t[i + 3] + (c >> 32);
+    t[i + 3] = (uint32_t)c;
+#pragma unroll
+    for (int k = 4; k < 7; ++k) {
+      c = (uint64_t)t[i + k] + (c >> 32);
+      t[i + k] = (uint32_t)c;
+    }
+    c = ((uint64_t)m << M::TOP) + t[i + 7] + (c >> 32);
+    t[i + 7] = (uint32_t)c;
+    c = (uint64_t)t[i + NW] + top + (c >> 32);
+    t[i + NW] = (uint32_t)c;
+    top = (uint32_t)(c >> 32);
+  }
+  uint32_t hi[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) hi[k] = t[NW + k];
+  return sub_p_if_geq<M>(hi, top);
+}
 
 // ---------------------------------------------------------------------------
 // The 22 x 12-bit boundary
 // ---------------------------------------------------------------------------
 
 // Signed lazy 22 x 12-bit limbs (any int32 values, as the limb engine
-// makes them: the top limb carries the sign) -> the value mod p in [0, p),
+// makes them: the top limb carries the sign) -> the value mod m in [0, m),
 // not yet in Montgomery form.  One carry pass in 64 bits, from the bottom
 // limb up, leaves limbs 0..20 in [0, 2^12), packed into lo as they come,
-// so value = lo + hi 2^252 with lo < 2^252 and |hi| < 2^32; then value ==
-// lo - hi delta (mod p), and one conditional correction by p lands in
-// [0, p).
+// so value = lo + hi 2^252 with lo < 2^252 and |hi| < 2^32.  Below p
+// (2^252 = 2^(224 + TOP)) lo stays whole; below r (2^249) lo's bits from
+// 2^249 up join hi, h = hi 2^3 + (lo >> 249), |h| < 2^36.  Then value ==
+// lo - h delta (mod m), |h| delta < 2^161, and one conditional correction
+// by m lands in [0, m).
+template <class M = ModP>
 __host__ __device__ __forceinline__ Fe from_limbs(const int32_t (&x)[NL]) {
   uint32_t lo[NW];
 #pragma unroll
@@ -330,21 +459,36 @@ __host__ __device__ __forceinline__ Fe from_limbs(const int32_t (&x)[NL]) {
     lo[i] |= limb << s;
     if (s > 32 - LW) lo[i + 1] |= limb >> (32 - s);
   }
-  const int64_t hi = x[NL - 1] + carry;
+  int64_t hi = x[NL - 1] + carry;
+  constexpr bool WIDE = M::TOP < 28;              // 2^(224 + TOP) < 2^252
+  if constexpr (WIDE) {
+    hi = hi * (int64_t{1} << (28 - M::TOP)) + (lo[NW - 1] >> M::TOP);
+    lo[NW - 1] &= (1u << M::TOP) - 1;
+  }
   const int64_t sgn = hi >> 63;                   // 0 or -1
   const uint32_t neg = (uint32_t)sgn;
-  const uint32_t h = (uint32_t)((hi ^ sgn) - sgn);  // |hi|, by mask
-  // hd = |hi| delta: 5 words
+  const uint64_t h = (uint64_t)((hi ^ sgn) - sgn);  // |h|, by mask
+  // hd = |h| delta: 5 words, 6 where h takes more than 32 bits
   uint32_t hd[NW];
   uint64_t c = 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    c = (uint64_t)h * p_word(i) + (c >> 32);
+    c = (uint64_t)(uint32_t)h * m_word<M>(i) + (c >> 32);
     hd[i] = (uint32_t)c;
   }
   hd[4] = (uint32_t)(c >> 32);
   hd[5] = hd[6] = hd[7] = 0;
-  // w = lo + hd (hi < 0) or lo - hd (hi >= 0), as lo + (hd ^ neg') + ...:
+  if constexpr (WIDE) {
+    const uint32_t h1 = (uint32_t)(h >> 32);
+    c = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      c = (uint64_t)h1 * m_word<M>(i) + hd[i + 1] + (c >> 32);
+      hd[i + 1] = (uint32_t)c;
+    }
+    hd[5] = (uint32_t)(c >> 32);
+  }
+  // w = lo + hd (h < 0) or lo - hd (h >= 0), as lo + (hd ^ neg') + ...:
   // compute both and select.
   uint32_t sum[NW], dif[NW];
   uint64_t cs = 0, bd = 0;
@@ -356,37 +500,39 @@ __host__ __device__ __forceinline__ Fe from_limbs(const int32_t (&x)[NL]) {
     dif[i] = (uint32_t)t;
     bd = (t >> 32) & 1;
   }
-  // lo - hd < 0: add p (the result is then in (p - 2^157, p))
-  const uint32_t add_p = (uint32_t)bd * 0xffffffffu;
+  // lo - hd < 0: add m (the result is then in (m - 2^161, m))
+  const uint32_t add_m = (uint32_t)bd * 0xffffffffu;
   c = 0;
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
-    c = (uint64_t)dif[i] + (p_word(i) & add_p) + (c >> 32);
+    c = (uint64_t)dif[i] + (m_word<M>(i) & add_m) + (c >> 32);
     dif[i] = (uint32_t)c;
   }
-  // lo + hd < 2^252 + 2^157 < 2p: subtract p once if it reaches p
-  const Fe s = sub_p_if_geq(sum, 0);
+  // lo + hd < 2^(224 + TOP) + 2^161 < 2m: subtract m once if it reaches m
+  const Fe s = sub_p_if_geq<M>(sum, 0);
   Fe r;
 #pragma unroll
   for (int i = 0; i < NW; ++i) r.w[i] = (s.w[i] & neg) | (dif[i] & ~neg);
   return r;
 }
 
-// Value in [0, p) -> Montgomery form, and back.
+// Value in [0, m) -> Montgomery form, and back.
+template <class M = ModP>
 __host__ __device__ __forceinline__ Fe to_mont(const Fe& a) {
   Fe r2;
 #pragma unroll
-  for (int i = 0; i < NW; ++i) r2.w[i] = r2_word(i);
-  return fe_mul(a, r2);
+  for (int i = 0; i < NW; ++i) r2.w[i] = M::r2(i);
+  return fe_mul<M>(a, r2);
 }
 
+template <class M = ModP>
 __host__ __device__ __forceinline__ Fe from_mont(const Fe& a) {
   Fe one = fe_zero();
   one.w[0] = 1;
-  return fe_mul(a, one);
+  return fe_mul<M>(a, one);
 }
 
-// A value in [0, p) -> canonical 22 x 12-bit limbs (limb 21 is 0 or 1).
+// A value in [0, 2^253) -> canonical 22 x 12-bit limbs (limb 21 is 0 or 1).
 __host__ __device__ __forceinline__ void pack_limbs(const Fe& v,
                                                     int32_t (&out)[NL]) {
 #pragma unroll
@@ -399,9 +545,10 @@ __host__ __device__ __forceinline__ void pack_limbs(const Fe& v,
 }
 
 // Montgomery form -> canonical 22 x 12-bit limbs.
+template <class M = ModP>
 __host__ __device__ __forceinline__ void to_limbs(const Fe& a,
                                                   int32_t (&out)[NL]) {
-  pack_limbs(from_mont(a), out);
+  pack_limbs(from_mont<M>(a), out);
 }
 
 // ---------------------------------------------------------------------------
@@ -506,7 +653,7 @@ __host__ __device__ __forceinline__ void padd_plain(const Load& ld,
                                                     Fe (&efgh)[4]) {
   Fe r4;
 #pragma unroll
-  for (int i = 0; i < NW; ++i) r4.w[i] = r4_word(i);
+  for (int i = 0; i < NW; ++i) r4.w[i] = ModP::r4(i);
   const Fe X1 = ld(0, 0), X2 = ld(1, 0);
   const Fe A = fe_mul(X1, X2);
   const Fe Y1 = ld(0, 1), Y2 = ld(1, 1);

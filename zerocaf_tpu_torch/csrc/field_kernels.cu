@@ -5,25 +5,28 @@
 // Every launcher enqueues on the stream it is given and returns
 // cudaGetLastError().
 //
-// Two field cores.  k_padd (K5) and k_ladder (K3, K4, K10) compute on the
-// 8 x 32-bit Montgomery core of field32.cuh (ladder32.cuh holds the
-// ladder's per-lane body): they convert their 22 x 12-bit inputs at entry,
-// and write canonical limbs, equal to their plain versions' results after
-// canonicalization.  k_mul, k_pow and k_comb keep the 22 x 12-bit limbs of
-// field.cuh and agree with their plain versions limb for limb.
+// Two field cores.  k_pow (K2), k_padd (K5) and k_ladder (K3, K4, K10)
+// compute on the 8 x 32-bit Montgomery core of field32.cuh (pow32.cuh and
+// ladder32.cuh hold the per-lane bodies of k_pow and k_ladder): they
+// convert their 22 x 12-bit inputs at entry, and write canonical limbs,
+// equal to their plain versions' results after canonicalization.  k_mul
+// and k_comb keep the 22 x 12-bit limbs of field.cuh and agree with their
+// plain versions limb for limb.
 //
-// Layout: public tensors are lane-major [n][22] int32.  Per-lane tables
-// live in a global scratch buffer that the wrapper allocates, with the lane
-// innermost -- k_pow's [entry][limb][n], k_ladder's [entry][16-byte
-// piece][n] -- so a warp's table reads coalesce.  Each kernel loops over
-// all windows or digits inside one launch: the TPU's split into a table
-// kernel and a per-step kernel existed only for its compiler.
+// Layout: public tensors are lane-major [n][22] int32.  k_ladder's per-lane
+// tables live in a global scratch buffer that the wrapper allocates, lane
+// innermost ([entry][16-byte piece][n]), so a warp's table reads coalesce;
+// k_pow's live in shared memory.  Each kernel loops over all windows or
+// digits inside one launch: the TPU's split into a table kernel and a
+// per-step kernel existed only for its compiler.
 //
 // Constant time: the ladders read every table entry at every window and
-// blend with masks; no load is indexed by a secret digit.  The comb (K6) is
-// the exception: it loads the table entry at the secret digit, as the
-// reference and the JAX package do (docs/CONSTANT_TIME.md: not oblivious at
-// cache-line granularity).
+// blend with masks; no load is indexed by a secret digit.  Power chains:
+// the access pattern depends only on the public exponent (k_pow reads the
+// entry at each public digit).  The comb (K6) is the exception: it loads
+// the table entry at the secret digit, as the reference and the JAX
+// package do (docs/CONSTANT_TIME.md: not oblivious at cache-line
+// granularity).
 
 #include <cuda_runtime.h>
 
@@ -33,13 +36,14 @@
 #include "field32.cuh"
 #include "init.cuh"
 #include "ladder32.cuh"
+#include "pow32.cuh"
 
 namespace zc {
 
 constexpr int BLOCK = 128;
 constexpr int CORE_MIN_BLOCKS = 4;     // k_padd's and k_ladder's blocks per SM
 constexpr int WARP = 32;
-constexpr int POW_ENTRIES = 16;        // a^0 .. a^15 (width-4 windows)
+constexpr int POW_BLOCK = 64;          // k_pow: 30,720 B of table a block
 
 __device__ __forceinline__ int lane_index() {
   return blockIdx.x * blockDim.x + threadIdx.x;
@@ -61,65 +65,81 @@ __global__ void __launch_bounds__(BLOCK)
   fe_store(out, lane, x);
 }
 
-// K2 -- replaces field_kernels.py:pow_tiled (_pow_table_kernel,
-// _pow_step_kernel, _pow_sq_kernel).  a^e for a public exponent given as its
-// width-4 digits, most significant first: table a^0..a^15, seed from the
-// first digit, then per digit 4 squarings and, for a nonzero digit, one
-// multiply by the entry read with a one-hot select over all 16 entries.  The
-// digit branch is uniform across threads (the exponent is public).  Bound by
-// the ~250 squarings and ~63 multiplies of a 253-bit exponent; the table is
-// 1.4 KB per lane in a coalesced [16][22][n] buffer.
-__global__ void __launch_bounds__(BLOCK)
-    k_pow(const int32_t* __restrict__ a, int32_t* __restrict__ out,
-          int32_t* __restrict__ tbl, const int32_t* __restrict__ digits,
-          int nwin, int n, int spec) {
-  const int lane = lane_index();
-  if (lane >= n) return;
-  const size_t nn = n;
-  const size_t entry = L * nn;
-  Fe base, cur;
-  fe_load(base, a, lane);
-  fe_store_t(tbl, lane, nn, fe_small(1));
-  fe_store_t(tbl + entry, lane, nn, base);
-  cur = base;
-  for (int k = 2; k < POW_ENTRIES; ++k) {
-    fe_mul(cur, cur, base, spec);
-    fe_store_t(tbl + k * entry, lane, nn, cur);
-  }
-  Fe r;
-  fe_load_t(r, tbl + digits[0] * entry, lane, nn);
-  for (int w = 1; w < nwin; ++w) {
-    for (int s = 0; s < 4; ++s) fe_sq(r, r, spec);
-    const int d = digits[w];
-    if (d != 0) {
-      Fe e, t;
-      fe_load_t(e, tbl, lane, nn);
-      for (int k = 1; k < POW_ENTRIES; ++k) {
-        fe_load_t(t, tbl + k * entry, lane, nn);
-        fe_cmov(e, t, -(int32_t)(d == k));
-      }
-      fe_mul(r, r, e, spec);
-    }
-  }
-  fe_store(out, lane, r);
-}
-
 // 22 x 12-bit limbs of lane `lane` in a lane-major [n][22] plane -> the
-// core's Montgomery form, and canonical limbs back.
+// core's Montgomery form (mod M), and canonical limbs back.
+template <class M = zc32::ModP>
 __device__ __forceinline__ zc32::Fe core_load(const int32_t* base,
                                               size_t lane) {
   int32_t x[L];
 #pragma unroll
   for (int k = 0; k < L; ++k) x[k] = base[lane * L + k];
-  return zc32::to_mont(zc32::from_limbs(x));
+  return zc32::to_mont<M>(zc32::from_limbs<M>(x));
 }
 
+template <class M = zc32::ModP>
 __device__ __forceinline__ void core_store(int32_t* base, size_t lane,
                                            const zc32::Fe& a) {
   int32_t x[L];
-  zc32::to_limbs(a, x);
+  zc32::to_limbs<M>(a, x);
 #pragma unroll
   for (int k = 0; k < L; ++k) base[lane * L + k] = x[k];
+}
+
+// k_pow's table of one thread in dynamic shared memory, [entry][word]
+// [thread]: a warp's reads of one word fall in 32 different banks.
+struct PowTable {
+  uint32_t* base;                      // the block's table + threadIdx.x
+  int stride;                          // threads a block
+  __device__ zc32::Fe get(int k) const {
+    zc32::Fe r;
+#pragma unroll
+    for (int i = 0; i < zc32::NW; ++i)
+      r.w[i] = base[((k - 1) * zc32::NW + i) * stride];
+    return r;
+  }
+  __device__ void put(int k, const zc32::Fe& v) const {
+#pragma unroll
+    for (int i = 0; i < zc32::NW; ++i)
+      base[((k - 1) * zc32::NW + i) * stride] = v.w[i];
+  }
+};
+
+constexpr int POW_TABLE_WORDS = (zc32::POW_ENTRIES - 1) * zc32::NW;
+
+// K2 -- replaces field_kernels.py:pow_tiled (_pow_table_kernel,
+// _pow_step_kernel, _pow_sq_kernel).  a^e mod p (M = ModP, spec 0) or mod r
+// (ModR, spec 1) for a public exponent given as its width-4 digits, most
+// significant first, on the 8 x 32-bit core: zc32::pow_lane (pow32.cuh),
+// the chain of the TPU kernel and the plain version, one thread a lane.
+// The input is signed lazy 22 x 12 limbs, the output canonical limbs.
+//
+// The table a^1..a^15 (480 bytes a lane) lives in dynamic shared memory,
+// 30,720 bytes for a block of 64 threads: seven blocks an SM.  (128
+// threads, 61,440 bytes and three blocks an SM, ran 1.7 % slower at 2^20
+// lanes and as fast at 32768 on an H100: chip_variants.py, PERF.md; the
+// launcher opts in to the shared memory above 48 KB that such a block
+// needs.)  A nonzero digit reads the one entry at that digit, uniform
+// across the block: the digits are the public exponent's.  The TPU's
+// one-hot select over all 16 entries was its stand-in for a dynamic
+// slice; the 22 x 12 kernel before this one kept it, over a global
+// [16][22][n] scratch table, 1.48 GB at 2^20 lanes.
+//
+// Bound by the multiplies: e = (p-5)/8 takes 14 multiplies for the table,
+// 248 squares (fe_sq_sos, 36 word products and the reduction) and 62
+// multiplies (a rolled loop of 8 steps).  At 2^20 lanes (Engine.msm's
+// decode) the card is full and their issue rate bounds it; at 32768 lanes,
+// four blocks an SM, the chain's latency does.
+template <class M>
+__global__ void __launch_bounds__(POW_BLOCK)
+    k_pow(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+          const int32_t* __restrict__ digits, int nwin, int n) {
+  extern __shared__ uint32_t pow_tbl[];
+  const int lane = lane_index();
+  if (lane >= n) return;
+  const PowTable t = {pow_tbl + threadIdx.x, (int)blockDim.x};
+  const zc32::Fe r = zc32::pow_lane<M>(
+      core_load<M>(a, lane), [&](int w) { return __ldg(digits + w); }, nwin, t);
+  core_store<M>(out, lane, r);
 }
 
 // One lane's table in k_ladder's scratch buffer [entry][q][n][4]: the
@@ -417,11 +437,16 @@ int zc_mul(const int32_t* a, const int32_t* b, int32_t* out, int n, int spec,
   return static_cast<int>(cudaGetLastError());
 }
 
-int zc_pow(const int32_t* a, int32_t* out, int32_t* tbl, const int32_t* digits,
-           int nwin, int n, int spec, void* stream) {
-  zc::k_pow<<<zc::blocks_for(n), zc::BLOCK, 0,
-              static_cast<cudaStream_t>(stream)>>>(a, out, tbl, digits, nwin,
-                                                   n, spec);
+int zc_pow(const int32_t* a, int32_t* out, const int32_t* digits, int nwin,
+           int n, int spec, void* stream) {
+  void (*kernel)(const int32_t*, int32_t*, const int32_t*, int, int) =
+      spec ? zc::k_pow<zc32::ModR> : zc::k_pow<zc32::ModP>;
+  const int smem = zc::POW_BLOCK * zc::POW_TABLE_WORDS * sizeof(uint32_t);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(n + zc::POW_BLOCK - 1) / zc::POW_BLOCK, zc::POW_BLOCK, smem,
+           static_cast<cudaStream_t>(stream)>>>(a, out, digits, nwin, n);
   return static_cast<int>(cudaGetLastError());
 }
 

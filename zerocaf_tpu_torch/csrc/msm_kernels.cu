@@ -1,23 +1,24 @@
 // Hopper kernels of Pippenger MSM: K7 (bucket accumulation for all window
-// groups; K9, K11 and K12 launch it too) with its prep kernel, on the
-// 8 x 32-bit core of field32.cuh, and K8 (window combine) on field.cuh's
-// 22 x 12-bit limbs, with a plain C launcher each (bound with ctypes by
+// groups; K9, K11 and K12 launch it too) with its prep kernel, and K8
+// (window combine; its point operations in quad32.cuh), on the 8 x 32-bit
+// core of field32.cuh, with a plain C launcher each (bound with ctypes by
 // zerocaf_tpu_torch/ops/kernels/build.py).  Every launcher enqueues on the
-// stream it is given and returns cudaGetLastError().  Each kernel agrees
-// limb for limb with its plain PyTorch version
-// (zerocaf_tpu_torch/ops/kernels/msm_kernels.py).
+// stream it is given and returns cudaGetLastError().  The kernels write
+// canonical limbs, equal to their plain PyTorch versions'
+// (zerocaf_tpu_torch/ops/kernels/msm_kernels.py) after canonicalization.
 
 #include <cuda_runtime.h>
 
 #include "field.cuh"
 #include "field32.cuh"
 #include "init.cuh"
+#include "quad32.cuh"
 
 namespace zc {
 
 constexpr int ACCUM_BLOCK = 128;
 constexpr int ACCUM_MIN_BLOCKS = 4;    // k_bucket_accum's blocks per SM
-constexpr int COMBINE_THREADS = 128;   // one thread per window
+constexpr int MAX_COMBINE_WINDOWS = 128;   // k_combine: a quad a window
 constexpr int PT = 4 * L;              // int32 of one extended point
 
 // One extended point stored as 88 contiguous int32 (X, Y, Z, T limbs).
@@ -28,33 +29,14 @@ __device__ __forceinline__ int32_t& pt_limb(Pt& p, int f) {
        : f < 3 * L ? p.Z.v[f - 2 * L] : p.T.v[f - 3 * L];
 }
 
-// 16-byte loads and stores of a contiguous point (352 bytes, 16-byte
-// aligned: every table entry starts at a multiple of 352 bytes).
-__device__ __forceinline__ void pt_load(Pt& p, const int32_t* src) {
-  const int4* s = reinterpret_cast<const int4*>(src);
-#pragma unroll
-  for (int q = 0; q < PT / 4; ++q) {
-    const int4 v = s[q];
-    pt_limb(p, 4 * q) = v.x;
-    pt_limb(p, 4 * q + 1) = v.y;
-    pt_limb(p, 4 * q + 2) = v.z;
-    pt_limb(p, 4 * q + 3) = v.w;
-  }
-}
-
+// 16-byte stores of a contiguous point (352 bytes, 16-byte aligned: every
+// table entry starts at a multiple of 352 bytes).
 __device__ __forceinline__ void pt_store(int32_t* dst, Pt& p) {
   int4* d = reinterpret_cast<int4*>(dst);
 #pragma unroll
   for (int q = 0; q < PT / 4; ++q)
     d[q] = make_int4(pt_limb(p, 4 * q), pt_limb(p, 4 * q + 1),
                      pt_limb(p, 4 * q + 2), pt_limb(p, 4 * q + 3));
-}
-
-__device__ __forceinline__ void pt_identity(Pt& p) {
-  p.X = fe_small(0);
-  p.Y = fe_small(1);
-  p.Z = fe_small(1);
-  p.T = fe_small(0);
 }
 
 constexpr int PT32 = 4 * zc32::NW;     // words of one core-form point
@@ -190,42 +172,116 @@ __global__ void __launch_bounds__(ACCUM_BLOCK, ACCUM_MIN_BLOCKS)
 }
 
 // K8 -- replaces msm_kernels.py:combine_tables (_combine_kernel).  Bucket
-// totals and Horner over windows in one block.  Thread w < nwin computes
-// window w's total by the descending running sum (acc += S_b; tot += acc
-// for b = nb-1 .. 1: 2(nb-1) additions) and leaves it in shared memory;
-// then thread 0 runs Horner from the most significant window down: c
-// doublings (T only on the last), one addition.  The TPU's lane roll has
-// no counterpart: thread 0 reads the totals from shared memory.  Bound by
-// the latency of the serial chain (about (nwin (c + 1) + 2(nb-1))
-// dependent point operations), not by throughput.
+// totals and Horner over windows in one block, on the 8 x 32-bit core,
+// each point operation shared by a quad of four threads (quad32.cuh).
 //
-// tbl: [nwin][nb][4][22] int32; out: [4][22].
-__global__ void __launch_bounds__(COMBINE_THREADS)
-    k_combine(const int32_t* __restrict__ tbl, int32_t* __restrict__ out,
-              int nwin, int nb, int c) {
-  __shared__ __align__(16) int32_t tot_s[COMBINE_THREADS * PT];
-  const int w = threadIdx.x;
-  if (w < nwin) {
-    Pt acc, tot, e;
-    pt_identity(acc);
-    pt_identity(tot);
-    for (int b = nb - 1; b >= 1; --b) {
-      pt_load(e, tbl + ((size_t)w * nb + b) * PT);
-      padd_ext(acc, acc, e);
-      padd_ext(tot, tot, acc);
-    }
-    pt_store(tot_s + w * PT, tot);
+// Entry: every thread converts a share of the bucket sums ([nwin][nb][4]
+// [22] limbs, any values the limb engine makes) into the core's form in
+// the scratch buffer `cv` ([nwin][nb][4][8] words), T as d T, the factor
+// padd_ext's C takes (one multiply: from_limbs value times d R^2).  Then
+// quad w < nwin runs window w's descending running sum (acc += S_b; tot +=
+// acc for b = nb-1 .. 1), d T_acc taking one more round before each tot
+// addition, and leaves its total, T as d T, in shared memory.  Quad 0 then
+// runs Horner from the most significant window down: c doublings, one
+// addition of the window's total; then `tail` more doublings (the
+// window-sharded combine's rank weight, parallel/msm.py), and writes
+// canonical limbs.  The TPU's lane roll has no counterpart.
+//
+// Bound by the latency of the serial chain, not by throughput: (nb - 1)
+// running-sum steps of 5 multiply rounds (acc, d T, tot), then nwin (c +
+// 1) point operations of 2 rounds and tail doublings, each round one
+// dependent field multiply (its latency is chip_smoke.py's zc_mul_chain
+// probe) plus the quad's shuffles and additions.  One thread a point takes
+// 8-9 dependent multiplies an operation: 2.1 ms at nwin 42, nb 33, c 6,
+// against the quads' 0.78 (on an H100, chip_variants.py, PERF.md).  The
+// multiply stays rolled: unrolled, K8 took 1.07 ms.
+//
+// tbl: [nwin][nb][4][22] int32; cv: scratch of nwin * nb * 32 words; out:
+// [4][22].  The block is 4 nwin threads.
+__global__ void __launch_bounds__(4 * MAX_COMBINE_WINDOWS)
+    k_combine(const int32_t* __restrict__ tbl, uint32_t* __restrict__ cv,
+              int32_t* __restrict__ out, int nwin, int nb, int c, int tail) {
+  __shared__ zc32::Fe tot_s[MAX_COMBINE_WINDOWS][4];
+  const int j = threadIdx.x & 3;                      // role: X, Y, Z, T
+  const int w = threadIdx.x >> 2;                     // window
+  const unsigned mask = 0xfu << (threadIdx.x & 28);   // the quad's lanes
+  const auto x = [&](const zc32::Fe& v, int s) {
+    zc32::Fe r;
+#pragma unroll
+    for (int i = 0; i < zc32::NW; ++i) r.w[i] = __shfl_sync(mask, v.w[i], s, 4);
+    return r;
+  };
+  zc32::Fe r2, one;
+#pragma unroll
+  for (int i = 0; i < zc32::NW; ++i) {
+    r2.w[i] = zc32::ModP::r2(i);
+    one.w[i] = zc32::ModP::one(i);
+  }
+  const zc32::Fe d = zc32::c_d32;
+  const zc32::Fe dr2 = zc32::fe_mul(d, r2);           // d R^2
+
+  // the bucket sums 1..nb-1 of every window into the core's form
+  const int per_w = (nb - 1) * 4;
+  for (int e = threadIdx.x; e < nwin * per_w; e += blockDim.x) {
+    const int ww = e / per_w, rest = e - ww * per_w;
+    const size_t slot = ((size_t)ww * nb + 1 + rest / 4) * 4 + (rest & 3);
+    int32_t v[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) v[k] = tbl[slot * L + k];
+    const zc32::Fe f = zc32::fe_mul(zc32::from_limbs(v),
+                                    zc32::fe_pick((rest & 3) == 3, dr2, r2));
+    uint4* dst = reinterpret_cast<uint4*>(cv + slot * zc32::NW);
+    dst[0] = make_uint4(f.w[0], f.w[1], f.w[2], f.w[3]);
+    dst[1] = make_uint4(f.w[4], f.w[5], f.w[6], f.w[7]);
   }
   __syncthreads();
-  if (w != 0) return;
-  Pt T, W;
-  pt_identity(T);
-  for (int s = nwin - 1; s >= 0; --s) {
-    for (int j = 0; j < c; ++j) pdbl(T, j == c - 1);
-    pt_load(W, tot_s + s * PT);
-    padd_ext(T, T, W);
+
+  const auto coord = [&](const uint32_t* pt, int k) {   // coordinate k
+    const uint4* s = reinterpret_cast<const uint4*>(pt + k * zc32::NW);
+    const uint4 lo = s[0], hi = s[1];
+    return zc32::Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
+  };
+  const zc32::Fe id = zc32::fe_pick(j == 1 || j == 2, one, zc32::fe_zero());
+  zc32::Fe acc = id, tot = id;
+  for (int b = nb - 1; b >= 1; --b) {
+    const uint32_t* S = cv + ((size_t)w * nb + b) * 4 * zc32::NW;
+    zc32::quad_padd(acc, zc32::quad_operand(coord(S, zc32::quad_add_a(j)),
+                                            coord(S, zc32::quad_add_b(j)), j),
+                    j, x);
+    zc32::quad_padd(tot, zc32::quad_held_operand(acc, j, x, d, one), j, x);
   }
-  pt_store(out, T);
+  tot_s[w][j] = zc32::fe_mul(tot, zc32::fe_pick(j == 3, d, one));
+  __syncthreads();
+  if (threadIdx.x >= 4) return;
+
+  zc32::Fe T = id;
+  for (int s = nwin - 1; s >= 0; --s) {
+    for (int i = 0; i < c; ++i) zc32::quad_pdbl(T, j, x);
+    zc32::quad_padd(T, zc32::quad_operand(tot_s[s][zc32::quad_add_a(j)],
+                                          tot_s[s][zc32::quad_add_b(j)], j),
+                    j, x);
+  }
+  for (int i = 0; i < tail; ++i) zc32::quad_pdbl(T, j, x);
+  int32_t limbs[L];
+  zc32::to_limbs(T, limbs);
+#pragma unroll
+  for (int k = 0; k < L; ++k) out[j * L + k] = limbs[k];
+}
+
+// The latency of one dependent multiply of the core, the unit of K8's
+// chain bound (chip_smoke.py): one thread runs `iters` multiplies, each of
+// the last one's product.  x: the factors a and b (8 words each); a is
+// overwritten with a b^iters R^-iters.
+__global__ void k_mul_chain(uint32_t* x, int iters) {
+  zc32::Fe a, b;
+#pragma unroll
+  for (int i = 0; i < zc32::NW; ++i) {
+    a.w[i] = x[i];
+    b.w[i] = x[zc32::NW + i];
+  }
+  for (int k = 0; k < iters; ++k) a = zc32::fe_mul(a, b);
+#pragma unroll
+  for (int i = 0; i < zc32::NW; ++i) x[i] = a.w[i];
 }
 
 }  // namespace zc
@@ -253,12 +309,18 @@ int zc_bucket_accum(const uint32_t* pts, const int32_t* dig, int32_t* tbl,
   return static_cast<int>(cudaGetLastError());
 }
 
-int zc_combine(const int32_t* tbl, int32_t* out, int nwin, int nb, int c,
-               void* stream) {
-  if (nwin < 1 || nwin > zc::COMBINE_THREADS)
+// cv: scratch of nwin * nb * 32 words (the bucket sums in the core's form).
+int zc_combine(const int32_t* tbl, int32_t* cv, int32_t* out, int nwin, int nb,
+               int c, int tail, void* stream) {
+  if (nwin < 1 || nwin > zc::MAX_COMBINE_WINDOWS)
     return static_cast<int>(cudaErrorInvalidValue);
-  zc::k_combine<<<1, zc::COMBINE_THREADS, 0,
-                  static_cast<cudaStream_t>(stream)>>>(tbl, out, nwin, nb, c);
+  zc::k_combine<<<1, 4 * nwin, 0, static_cast<cudaStream_t>(stream)>>>(
+      tbl, reinterpret_cast<uint32_t*>(cv), out, nwin, nb, c, tail);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int zc_mul_chain(uint32_t* x, int iters, void* stream) {
+  zc::k_mul_chain<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(x, iters);
   return static_cast<int>(cudaGetLastError());
 }
 

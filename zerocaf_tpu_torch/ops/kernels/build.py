@@ -36,7 +36,7 @@ _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "field_kernels": {
         "zc_mul": [_ptr, _ptr, _ptr, _i32, _i32, _ptr],
-        "zc_pow": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _ptr],
+        "zc_pow": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _ptr],
         "zc_ladder": [_ptr, _ptr, _i32, _i32, _i32, _ptr, _ptr, _i32, _ptr],
         "zc_padd": [*[_ptr] * 4, _i32, _i32, *[_ptr] * 4, _i32, _i32, _ptr,
                     _i32, _i32, _ptr],
@@ -45,7 +45,8 @@ SIGNATURES = {
     "msm_kernels": {
         "zc_to_field32": [_ptr, _ptr, _i32, _ptr],
         "zc_bucket_accum": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr],
-        "zc_combine": [_ptr, _ptr, _i32, _i32, _i32, _ptr],
+        "zc_combine": [_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr],
+        "zc_mul_chain": [_ptr, _i32, _ptr],
     },
 }
 
@@ -127,7 +128,7 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.zc_init.argtypes = [_ptr] * 4
+    lib.zc_init.argtypes = [_ptr] * 2
     lib.zc_init.restype = ctypes.c_int
     lib.zc_error_string.argtypes = [_i32]
     lib.zc_error_string.restype = ctypes.c_char_p
@@ -145,9 +146,8 @@ def load(device: torch.device, stem: str) -> ctypes.CDLL:
     lib = _libs[stem]
     index = device.index if device.index is not None else torch.cuda.current_device()
     if (stem, index) not in _initialized:
-        consts = [np.ascontiguousarray(a, dtype=np.int32) for a in (
-            C.FOLD_C_P_LIMBS, C.FOLD_C_R_LIMBS, C.EDWARDS_D_LIMBS,
-            C.EDWARDS_2D_LIMBS)]
+        consts = [np.ascontiguousarray(a, dtype=np.int32)
+                  for a in (C.FOLD_C_P_LIMBS, C.FOLD_C_R_LIMBS)]
         with torch.cuda.device(index):
             rc = lib.zc_init(*[a.ctypes.data_as(ctypes.c_void_p) for a in consts])
         check(lib, rc, f"zc_init ({stem})")

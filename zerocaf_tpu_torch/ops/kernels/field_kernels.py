@@ -12,22 +12,30 @@ versions (zerocaf_tpu/ops/pallas/field_kernels.py counterpart).
                                        program (K3's kernel, its own entry)
 
 The CUDA sources are ``zerocaf_tpu_torch/csrc/field_kernels.cu`` with
-``field.cuh`` (K1, K2, K6) and ``field32.cuh``/``ladder32.cuh`` (K3, K4, K5,
-K10).  Each wrapper checks its tensors (int32, limb axis 22, contiguous, one
-device) and raises on anything else.  For CUDA tensors it launches its
-kernel, or raises if the kernel library cannot be built or the launch fails;
-for CPU tensors it runs the plain version beside it.  ``<wrapper>.launches``
-counts kernel launches and nothing else.
+``field.cuh`` (K1, K6) and ``field32.cuh`` with ``pow32.cuh`` (K2) and
+``ladder32.cuh`` (K3, K4, K10) and K5.  Each wrapper checks its tensors
+(int32, limb axis 22, contiguous, one device) and raises on anything else.
+For CUDA tensors it launches its kernel, or raises if the kernel library
+cannot be built or the launch fails; for CPU tensors it runs the plain
+version beside it.  ``<wrapper>.launches`` counts kernel launches and
+nothing else.
 
 The plain versions use the kernels' algorithm and the limb algebra of
 ``field.cuh`` -- the same schoolbook columns, the two-pass keep-top carries,
 the cascade folds and the single carry passes (``_c1``) at the same places.
-K1, K2 and K6 compute in that algebra on the card too and agree with their
-plain versions limb for limb.  K3, K4, K5 and K10 compute on the 8 x 32-bit
-Montgomery core of ``field32.cuh`` with the same formulas, so they give the
-same field values and write them as canonical limbs: they agree with their
-plain versions after ``limb.canonical``.  Laziness bounds (radix 2^12, int32
-columns), as in the JAX package:
+K1 and K6 compute in that algebra on the card too and agree with their
+plain versions limb for limb.  K2, K3, K4, K5 and K10 compute on the 8 x
+32-bit Montgomery core of ``field32.cuh`` (K2 modulo p or r) with the same
+formulas and chains, so they give the same field values and write them as
+canonical limbs: they agree with their plain versions after
+``limb.canonical``.
+
+Constant time: the ladders read every table entry and select by mask.
+Power chains: the access pattern depends only on the public exponent (K2
+reads the table entry at each public digit).  The comb (K6) loads the entry
+at the secret digit, as the reference does.
+
+Laziness bounds (radix 2^12, int32 columns), as in the JAX package:
   * semi limbs are < 2^12.1 after a carry pass;
   * multiply operands may be one add deep (<= 2^13.1): 22 * 2^26.2 < 2^30.7;
   * square operands must be semi: 23 * 2^12.1 * 2^13.1 < 2^29.8;
@@ -276,7 +284,10 @@ _POW_DIGITS: dict = {}
 
 
 def pow_tiled(a, e: int, spec: ModSpec = FIELD):
-    """a^e (mod spec.m) for a static exponent e > 0 (K2)."""
+    """a^e (mod spec.m) for a static exponent e > 0 (K2): [..., 22] limbs
+    in (any values the limb engine makes), semi limbs out (the kernel
+    writes canonical ones).  The kernel's table lives in shared memory and
+    is read at each public digit."""
     _check_limbs("pow_tiled", a)
     if _on_cpu(a):
         return pow_tiled_ref(a, e, spec)
@@ -288,9 +299,8 @@ def pow_tiled(a, e: int, spec: ModSpec = FIELD):
     out = torch.empty_like(a)
     n = _flat(a)
     if n:
-        tbl = torch.empty((1 << POW_WIDTH, L, n), dtype=torch.int32, device=a.device)
-        _launch("pow_tiled", a.device, "zc_pow", a, out, tbl, digits,
-                digits.numel(), n, spec.kernel_id)
+        _launch("pow_tiled", a.device, "zc_pow", a, out, digits, digits.numel(),
+                n, spec.kernel_id)
         pow_tiled.launches += 1
     return out
 

@@ -4,7 +4,8 @@ versions (zerocaf_tpu/ops/pallas/msm_kernels.py counterpart).
   K7  ``bucket_accum_all``  signed-digit bucket tables of every window group,
                             one private table per lane
   K8  ``combine_tables``    bucket totals by the descending running sum, then
-                            Horner over the windows -> one point
+                            Horner over the windows -> one point (strided:
+                            ``tail`` doublings of the result)
   K9  ``bucket_accum_k``    one group of k windows' tables (K7's kernel, one
                             group)
   K11 ``bucket_accum``      one window's tables (K7's kernel, k = 1)
@@ -24,7 +25,10 @@ fill the card.
 count) converts the points to that form once a call, and the kernel
 writes its tables as canonical 22 x 12-bit limbs.  The plain versions add
 in the same order in the limb algebra of ``field_kernels`` and canonicalize
-at the end, so kernel and plain version agree limb for limb.
+at the end, so kernel and plain version agree limb for limb.  ``k_combine``
+(K8) computes on the same core, each point operation on four threads
+(``csrc/quad32.cuh``), with the formulas of its plain version, and writes
+canonical limbs: the two agree after ``limb.canonical``.
 
 ``fold=f`` (K7 and K9; ``_fold_lanes`` on the TPU) runs f rounds of the
 lane tree over the tables in place after the launch: lanes 0:lanes>>f of
@@ -53,7 +57,7 @@ from .field_kernels import (L, _check_limbs, _on_cpu, _padd_ext_block,
                             padd_tiled_ref)
 
 PT = 4 * L                 # int32 of one extended point
-MAX_COMBINE_WINDOWS = 128  # K8 runs one thread per window in one block
+MAX_COMBINE_WINDOWS = 128  # K8 runs four threads a window in one block
 MIN_LANES = 32
 MAX_LANES = 4096
 ACCUM_THREADS_PER_SM = 4 * 128   # k_bucket_accum's __launch_bounds__(128, 4)
@@ -355,9 +359,9 @@ bucket_accum2.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def combine_tables_ref(tables, nb: int, nwin: int, c: int):
+def combine_tables_ref(tables, nb: int, nwin: int, c: int, tail: int = 0):
     """Plain version of K8: the running sums of every window at once, then
-    Horner on one point, in the kernel's order."""
+    Horner on one point, in the kernel's order, then ``tail`` doublings."""
     S = tuple(t[:nwin] for t in tables)                    # [nwin, nb, 22]
     acc = tot = identity_like(tuple(t[:, 0] for t in S))
     for b in range(nb - 1, 0, -1):
@@ -368,13 +372,17 @@ def combine_tables_ref(tables, nb: int, nwin: int, c: int):
         for j in range(c):
             T = _pdbl_block(T, with_t=(j == c - 1))
         T = _padd_ext_block(T, tuple(t[w] for t in tot))
+    for j in range(tail):
+        T = _pdbl_block(T, with_t=(j == tail - 1))
     return T
 
 
-def combine_tables(tables, nb: int, nwin: int, c: int):
+def combine_tables(tables, nb: int, nwin: int, c: int, tail: int = 0):
     """Bucket totals and Horner (K8): tables, a 4-tuple of [nwin, nb, 22]
-    bucket sums (bucket 0 unused), -> the point sum_w 2^(c w) sum_b b S_wb
-    as a 4-tuple of [22]."""
+    bucket sums (bucket 0 unused), -> the point 2^tail sum_w 2^(c w) sum_b
+    b S_wb as a 4-tuple of [22] (the kernel writes canonical limbs, the
+    plain version semi limbs).  With c = c' ndev and tail = c' rank it is
+    rank's share of the window-sharded combine (``parallel/msm.py``)."""
     if len(tables) != 4:
         raise ValueError(f"combine_tables: expected 4 coordinates, got {len(tables)}")
     tbl = torch.stack(tables, dim=2)                       # [nwin, nb, 4, 22]
@@ -382,12 +390,16 @@ def combine_tables(tables, nb: int, nwin: int, c: int):
     if tuple(tbl.shape) != (nwin, nb, 4, L):
         raise ValueError(f"combine_tables: tables {tuple(tables[0].shape)}, "
                          f"expected {(nwin, nb, L)}")
-    if not 1 <= nwin <= MAX_COMBINE_WINDOWS or nb < 2 or c < 1:
-        raise ValueError(f"combine_tables: unsupported nwin {nwin}, nb {nb}, c {c}")
+    if not 1 <= nwin <= MAX_COMBINE_WINDOWS or nb < 2 or c < 1 or tail < 0:
+        raise ValueError(f"combine_tables: unsupported nwin {nwin}, nb {nb}, c {c}, "
+                         f"tail {tail}")
     if _on_cpu(tbl):
-        return combine_tables_ref(tables, nb, nwin, c)
+        return combine_tables_ref(tables, nb, nwin, c, tail)
     out = torch.empty((4, L), dtype=torch.int32, device=tbl.device)
-    _launch("combine_tables", tbl.device, "zc_combine", tbl, out, nwin, nb, c)
+    # the bucket sums in the core's form, [nwin][nb][4][8] words
+    cv = torch.empty((nwin, nb, 4, NW32), dtype=torch.int32, device=tbl.device)
+    _launch("combine_tables", tbl.device, "zc_combine", tbl, cv, out, nwin, nb, c,
+            tail)
     combine_tables.launches += 1
     return tuple(out.unbind(0))
 

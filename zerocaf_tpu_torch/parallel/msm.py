@@ -18,7 +18,8 @@ Two routes compute the same sum:
 
 ``msm_sharded`` runs either route on each rank's block of the batch and
 sums the ranks' partial points with ``all_gather`` and a tree reduction
-(``shard_combine`` instead splits the window combine across the ranks).
+(``shard_combine`` instead splits the window combine across the ranks,
+each rank's share one K8 call with a tail of doublings).
 The ranks are processes of ``torch.distributed`` (``parallel/mesh.py``).
 
 Every batched addition here is one K5 call on the card, at any width: the
@@ -485,10 +486,14 @@ def _sharded_combine(tables, c: int, nbuckets: int, comm: Communicator,
         total = sum_d 2^(c d) * Horner_{stride=ndev}(tot_{d::ndev})
 
     A window count not divisible by ndev pads with all-identity tables,
-    whose totals are the identity.  Returns this rank's weighted partial
-    (a tuple of [22]); the caller gathers and tree-reduces them.  Rank d's
-    weight 2^(c d) is c * d doublings here: the JAX package ran a fixed
-    doubling chain because shard_map traces one program for every rank."""
+    whose totals are the identity.  Rank d's share is one K8 call (its
+    plain version on the CPU): running sums, Horner with c * ndev
+    doublings a window, then c * d doublings, the rank's weight 2^(c d) --
+    the JAX package ran a fixed doubling chain because shard_map traces one
+    program for every rank.  More windows a rank than K8 takes (c = 1 on
+    one or two ranks) take the log-depth combine.  Returns this rank's
+    weighted partial (a tuple of [22]); the caller gathers and
+    tree-reduces them."""
     nwin = tables[0].shape[0]
     k = -(-nwin // ndev)
     pad = k * ndev - nwin
@@ -499,7 +504,9 @@ def _sharded_combine(tables, c: int, nbuckets: int, comm: Communicator,
     g = comm.all_gather_points(tables)           # [ndev, k * ndev, nb, 22]
     my = comm.axis_index()
     loc = _tree_reduce(tuple(t[:, my::ndev] for t in g))        # [k, nb, 22]
-    out = _horner(_bucket_totals(loc, nbuckets), c, stride=ndev)
+    if k <= _mk.MAX_COMBINE_WINDOWS:
+        return _mk.combine_tables(loc, nbuckets, k, c * ndev, tail=c * my)
+    out = _horner(_bucket_totals(loc, nbuckets), c, stride=ndev)  # c = 1, few ranks
     for _ in range(c * my):
         out = _ed._double(out)
     return out
@@ -518,9 +525,9 @@ def msm_sharded(points: EdwardsPoint, scalars: Scalar, mesh,
     c=None picks the width from the global N, as the JAX package does.
     dense=True runs each rank's Pippenger on the dense kernels: with
     shard_combine, K9 once per window group and the window-sharded
-    combine (the JAX package's pod configuration); without it, K7 and K8
-    as ``msm``.  shard_combine on the scan route shares the combine the
-    same way.  dense=True needs signed=True."""
+    combine, one K8 call a rank (the JAX package's pod configuration);
+    without it, K7 and K8 as ``msm``.  shard_combine on the scan route
+    shares the combine the same way.  dense=True needs signed=True."""
     if dense and not signed:
         raise ValueError("msm_sharded(dense=True) requires signed=True")
     if points.X.device != mesh.device:
