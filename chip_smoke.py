@@ -8,7 +8,8 @@ Phases, in order (any failure raises, so the exit code is non-zero):
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: compile (or load) the kernel libraries from zerocaf_tpu_torch/csrc,
      one nvcc process per source, all at once; ptxas' registers and spills,
-     and those of the kernels on the 8 x 32-bit core apart; for
+     and those of the kernels on the 8 x 32-bit core apart (k_mul and
+     k_comb must not spill); for
      k_bucket_accum, k_padd and k_ladder the 32 x 32 -> 64-bit products
      (IMAD.WIDE.U32), the IMAD.HI of the multiply's carry chains and all
      instructions in their SASS (cuobjdump; static counts: the multiply is
@@ -18,12 +19,15 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      instructions of one step of that loop; the latency of one dependent
      core multiply (zc_mul_chain, one thread, 4,096 of them), checked
      against the oracle;
-  3. kernels: K1-K4 against their plain PyTorch versions at the main path's
-     shapes (K1 limb for limb; K2, K3, K4, on the 8 x 32-bit core, against
-     the plain versions' canonical limbs; K2 for every chain exponent mod
-     p and r - 2 mod r, timed at 32768 and 2^20 lanes with the peak memory
-     of one launch), with CUDA-event times of both and, for K3 and K4, the
-     time their multiplies' SASS would take at the card's issue rate;
+  3. kernels: K1-K4 against their plain PyTorch versions' canonical limbs
+     at the main paths' shapes (K1 at 32768 lanes mod p and r, at 2^20
+     mod p -- Engine.msm's decode -- and at 2^16; K2 for every chain
+     exponent mod p and r - 2 mod r, timed at 32768 and 2^20 lanes with
+     the peak memory of one launch), with CUDA-event times of both over
+     back-to-back wrapper calls (K1's also replayed from a CUDA graph, its
+     wrapper's Python being longer than a small kernel: graph_ms) and, for
+     K3 and K4, the time their multiplies' SASS would take at the card's
+     issue rate;
   4. vectors: the 16 Ristretto small multiples, the Elligator sage vector
      and [2]B, byte for byte;
   5. ECDH at batch 32768: public keys by the ladder (K3), shared secrets by
@@ -58,9 +62,13 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      launches and time; then one more call with torch.cat and torch.stack
      wrapped, naming the callers of the copies;
  16. comb table: the signed width-14 table loaded from the cache or built
-     from the oracle (seconds printed), uploaded in both layouts;
- 17. K6 against its plain version at 32768 lanes: signed width 14 on the
-     packed and the rows table, unsigned width 8;
+     from the oracle (seconds printed), uploaded in the plain version's
+     two layouts and converted into the kernel's (the core's Montgomery
+     form; seconds printed);
+ 17. K6 against its plain version's canonical limbs at 32768 lanes: signed
+     width 14 (the plain version on the packed and on the rows table),
+     unsigned width 8, each with its time over back-to-back wrapper calls
+     (and replayed from a CUDA graph: graph_ms) and bound;
  18. Engine.keygen at batch 32768, the keygen main path: pk equals the
      Ristretto encoding of the ladder's (K3) sk * B on every lane, and the
      oracle on 32 sampled lanes and on the lanes that reduce to
@@ -93,9 +101,10 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      times and peak memory;
  25. msm_with_checkpoints at 2^16 points in 4 blocks, and the same job
      resumed from its file after block 2, equal to the one-shot MSM.
-Kernels on the 8 x 32-bit core (K2-K5, K7-K12) write canonical limbs and
-are held against their plain versions' canonical limbs; the others limb
-for limb.
+Every kernel computes on the 8 x 32-bit core and writes canonical limbs;
+each is held against its plain version's canonical limbs.  K1's launches
+are counted on each main path: ECDH (phases 5-6), Engine.msm (phase 11)
+and keygen (phase 18).
 The line before the last is a JSON object with one entry per kernel, with
 its bound (the larger of its bytes over the memory rate and its field
 multiplies and squares, priced at the 8 x 32 core's word products, over
@@ -108,6 +117,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import time
 
@@ -115,7 +125,8 @@ import numpy as np
 import torch
 
 BATCH = 32768                 # Engine default: the serving batch
-MUL_LANES = 1 << 16           # K1 and K5 checked at 2^16 lanes
+MUL_LANES = 1 << 16           # K5 checked at 2^16 lanes, K1 also timed there
+K1_BIG = 1 << 20              # K1's lanes in Engine.msm's decode at 2^20
 SAMPLE = 32                   # lanes checked against the oracle
 TOLERANCE = 0                 # integer limb algebra: kernels equal plain versions
 RATE_CALLS = 11               # serving calls timed for each rate (median)
@@ -139,7 +150,8 @@ TPU_KERNELS = "zerocaf_tpu/ops/pallas/field_kernels.py"
 TPU_MSM_KERNELS = "zerocaf_tpu/ops/pallas/msm_kernels.py"
 
 # Work model of the bounds: field multiplies and squares, as a pair
-# (multiplies, squares); point operations as in csrc/field.cuh.
+# (multiplies, squares); point operations as in the plain versions
+# (zerocaf_tpu_torch/ops/kernels/field_kernels.py).
 MUL = np.array([1, 0])
 SQ = np.array([0, 1])
 PADD = 10 * MUL                                 # padd_ext
@@ -148,8 +160,9 @@ MADD7 = 7 * MUL                                 # madd_affine (the comb)
 PDBL_T = 4 * SQ + 4 * MUL                       # pdbl with T
 PDBL = 4 * SQ + 3 * MUL                         # pdbl without T
 # Integer multiplies of one field multiply and square, on two bases.  The
-# 22 x 12 algebra of field.cuh: the 22 x 22 schoolbook plus the three
-# folds (12 x (23 + 14 + 5)), and 22 + 231 products plus the folds.  The 8
+# 22 x 12 algebra of the plain versions (zerocaf_tpu_torch/ops/limb.py):
+# the 22 x 22 schoolbook plus the three folds (12 x (23 + 14 + 5)), and
+# 22 + 231 products plus the folds.  The 8
 # x 32 core of field32.cuh, the least work a field multiply needs on this
 # card: 64 word products and 8 reduction steps of 5 (m = t0 (-p^-1) and
 # m times p's four nonzero low words), and for the square 28 cross
@@ -169,10 +182,11 @@ UNTEMPLATED_SASS = {"_ZN2zc14k_bucket_accumEPKjPKiPiiiii": (2, 170, 2552),
                     "_ZN2zc6k_paddILi1EEEvNS_6PaddInES1_Piii": (43, 146, 4952),
                     "_ZN2zc6k_paddILi2EEEvNS_6PaddInES1_Piii": (43, 146, 4864),
                     "_ZN2zc8k_ladderEPKiS1_iiiPjPii": (19, 420, 7672)}
-PTXAS_KERNELS = ("k_pow", "k_combine", "k_mul_chain")     # ptxas report
+PTXAS_KERNELS = ("k_pow", "k_combine", "k_mul", "k_comb")   # ptxas report
+SPILL_FREE = ("2zc5k_mulI", "2zc6k_combE")   # mangled k_mul<M, VEC> and k_comb
 MUL_CHAIN = 4096              # dependent multiplies of the latency probe
 POW_BIG = 1 << 20             # K2's lanes in Engine.msm's decode at 2^20
-WATCHED = ("k_mul", "k_pow", "k_combine")   # profiled calls name these apart
+WATCHED = ("k_mul", "k_pow", "k_comb", "k_combine")   # named apart in profiles
 
 # Reference vectors: compressed k*B for k = 0..15, and the Elligator sage
 # vector (input bytes, expected point as 52-bit limbs).
@@ -220,6 +234,27 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps calls captured in one CUDA graph
+    and replayed: the kernel's own time, without the host's launch work
+    between calls (a wrapper's Python takes longer than a small kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -447,7 +482,7 @@ def main() -> None:
     t0 = time.perf_counter()
     paths, nvcc_s, log = build.build()
     for stem in paths:
-        build.load(dev, stem)
+        build.load(stem)
     phase("build", f"{', '.join(p.name for p in paths.values())}: nvcc "
           f"{nvcc_s:.1f}s (all sources at once), ready in "
           f"{time.perf_counter() - t0:.1f}s")
@@ -472,6 +507,13 @@ def main() -> None:
             phase("core kernels", f"{name}: {r.get('registers')} registers, "
                   f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} "
                   f"B spill loads, {r.get('stack')} B stack")
+    for kernel in SPILL_FREE:
+        found = {name: r for name, r in report.items() if kernel in name}
+        spilled = [name for name, r in found.items()
+                   if r.get("spill_stores") or r.get("spill_loads")]
+        if not found or spilled:
+            raise AssertionError(f"{kernel}: missing from the ptxas report or "
+                                 f"spilled: {spilled}")
     steps = {k: mul_step_instructions(paths["field_kernels"], k)
              for k in ("k_ladder", "k_padd")}
     phase("core kernels", f"one step of the rolled multiply: {steps['k_ladder']} "
@@ -504,22 +546,36 @@ def main() -> None:
             r.update(bound)
         r.update(extra)
 
-    for spec in (limb.FIELD, limb.SCALAR):
-        a = rand_elems(MUL_LANES, spec)
-        b = rand_elems(MUL_LANES, spec)
+    # K1 at the main paths' shapes: 32768 lanes mod p and r (ECDH, keygen),
+    # 2^20 mod p (Engine.msm's decode), and 2^16 mod p (earlier records' shape)
+    k1 = {}
+    for spec, n in ((limb.FIELD, BATCH), (limb.SCALAR, BATCH), (limb.FIELD, K1_BIG),
+                    (limb.FIELD, MUL_LANES)):
+        a = rand_elems(n, spec)
+        b = rand_elems(n, spec)
         a = limb.sub(fk.mul_tiled_ref(a, b, spec), a)    # semi, maybe negative
-        err = max_abs_err(fk.mul_tiled(a, b, spec), fk.mul_tiled_ref(a, b, spec))
+        err = max_abs_err(fk.mul_tiled(a, b, spec),
+                          limb.canonical(fk.mul_tiled_ref(a, b, spec), spec))
         ms = cuda_ms(lambda: fk.mul_tiled(a, b, spec), 50)
-        plain = cuda_ms(lambda: fk.mul_tiled_ref(a, b, spec), 5)
-        phase("K1 mul_tiled", f"{spec.name} {MUL_LANES} lanes: max_abs_err {err} "
-              f"(tolerance {TOLERANCE}), kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        replay = graph_ms(lambda: fk.mul_tiled(a, b, spec), 50)
+        plain = cuda_ms(lambda: fk.mul_tiled_ref(a, b, spec), 1 if n == K1_BIG else 5)
+        bound = roof(n * MUL, 3 * n * 22 * 4)
+        key = f"{'r' if spec is limb.SCALAR else 'p'} {n}"
+        k1[key] = dict(ms=ms, graph_ms=replay, plain_ms=plain,
+                       bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+        phase("K1 mul_tiled", f"mod {key} lanes: max_abs_err {err} (tolerance "
+              f"{TOLERANCE}, canonical limbs), kernel {ms:.4f} ms a wrapper call "
+              f"back to back ({replay:.4f} ms replayed from a CUDA graph), plain "
+              f"{plain:.4f} ms, bound {bound['bound_ms']:.4f} ms by "
+              f"{bound['bound_by']}")
         if err > TOLERANCE:
-            raise AssertionError(f"K1 differs from its plain version ({spec.name})")
-        if spec is limb.FIELD:                      # the main path's modulus
-            record(fk.mul_tiled, err, ms, plain,
-                   roof(MUL_LANES * MUL, 3 * MUL_LANES * 22 * 4))
+            raise AssertionError(f"K1 differs from its plain version ({key})")
+        if key == f"p {BATCH}":                     # ECDH's and keygen's shape
+            record(fk.mul_tiled, err, ms, plain, bound, graph_ms=replay)
         else:
             record(fk.mul_tiled, err)
+        del a, b
+    record(fk.mul_tiled, 0, by_shape=k1)
 
     x = limb.sub(fk.mul_tiled_ref(rand_elems(BATCH, limb.FIELD),
                                   rand_elems(BATCH, limb.FIELD)),
@@ -693,6 +749,7 @@ def main() -> None:
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    record(fk.mul_tiled, 0, launches_ecdh=counts["mul_tiled"])
 
     # 8. rates ---------------------------------------------------------------
     rates = []
@@ -913,6 +970,7 @@ def msm_phases(dev, rng, roof, card, ecdh_pts, record, steps,
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t_main
     counts = msm_counts(fk, mk)
+    record(fk.mul_tiled, 0, launches_msm=fk.mul_tiled.launches)
 
     if not bool(ok) or bool(ok_bad) or not bool(ok_pad) or n_valid != n_pad:
         raise AssertionError(f"msm ok flags: {bool(ok)}, invalid lane "
@@ -925,7 +983,7 @@ def msm_phases(dev, rng, roof, card, ecdh_pts, record, steps,
           f"invalid lane makes ok false; pad_msm of {n_pad} lanes equals their "
           f"MSM")
     phase("launches", f"msm main path, 3 Engine.msm calls ({main_s:.2f}s host): "
-          f"{json.dumps(counts)}")
+          f"{json.dumps(counts)}, K1 {fk.mul_tiled.launches}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the msm path: {missing}")
@@ -1062,34 +1120,49 @@ def keygen_phases(dev, rng, roof, card, pts, s, record, steps) -> dict[str, int]
     dev_tbl = {layout: ed.comb_table(sw, True, layout, dev)
                for layout in ("packed", "rows")}
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_tbl["core"] = ed.comb_table(sw, True, "core", dev)
+    torch.cuda.synchronize()
+    core_s = time.perf_counter() - t0
     phase("comb table", f"signed width {sw}: {list(host.shape)} int32 "
           f"({host.nbytes / 1e6:.1f} MB) from the {'cache' if cached else 'oracle'} "
-          f"in {built_s:.2f}s; on the card packed {dev_tbl['packed'].nbytes / 1e6:.1f}"
-          f" MB, rows {dev_tbl['rows'].nbytes / 1e6:.1f} MB")
+          f"in {built_s:.2f}s; on the card for the plain version packed "
+          f"{dev_tbl['packed'].nbytes / 1e6:.1f} MB, rows "
+          f"{dev_tbl['rows'].nbytes / 1e6:.1f} MB; the kernel's (core form) "
+          f"{dev_tbl['core'].nbytes / 1e6:.1f} MB, converted in {core_s:.3f}s")
 
     # 17. K6 against its plain version at BATCH lanes
     cases = ((sw, True, "packed2"), (sw, True, "rows"), (8, False, "rows"))
     for width, signed, glue in cases:
         win = s.windows(width, -(-250 // width))
         got = fk.fixed_base_mul_stepped(win, width, signed=signed, glue=glue)
-        want = fk.fixed_base_mul_stepped_ref(win, width, signed=signed, glue=glue)
+        want = canonical(fk.fixed_base_mul_stepped_ref(win, width, signed=signed,
+                                                       glue=glue))
         err = max_abs_err(got, want)
         ms = cuda_ms(lambda: fk.fixed_base_mul_stepped(win, width, signed=signed,
                                                        glue=glue), 20)
+        replay = graph_ms(lambda: fk.fixed_base_mul_stepped(win, width, signed=signed,
+                                                            glue=glue), 20)
         plain = cuda_ms(lambda: fk.fixed_base_mul_stepped_ref(
             win, width, signed=signed, glue=glue), 1)
-        tbl = ed.comb_table(width, signed, fk.comb_layout(glue), dev)
+        tbl = ed.comb_table(width, signed, fk.comb_layout(glue, device=dev), dev)
         bound = roof(BATCH * win.shape[-1] * MADD7,
                      tbl.nbytes + win.nbytes + BATCH * PT_BYTES)
         label = f"{'signed' if signed else 'unsigned'} width {width} {glue}"
         phase("K6 fixed_base_mul_stepped", f"{label}, {BATCH} lanes: max_abs_err "
-              f"{err} (tolerance {TOLERANCE}), kernel {ms:.4f} ms, plain "
-              f"{plain:.2f} ms, bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}")
+              f"{err} (tolerance {TOLERANCE}, canonical limbs), kernel {ms:.4f} "
+              f"ms a wrapper call back to back ({replay:.4f} ms replayed from a "
+              f"CUDA graph), plain {plain:.2f} ms, bound {bound['bound_ms']:.4f} "
+              f"ms by {bound['bound_by']}")
         if err > TOLERANCE:
             raise AssertionError(f"K6 differs from its plain version ({label})")
         if glue == "packed2":                  # basepoint_mul's route
             k6_ms = ms
-            record(fk.fixed_base_mul_stepped, err, ms, plain, bound)
+            record(fk.fixed_base_mul_stepped, err, ms, plain, bound, graph_ms=replay)
+        elif not signed:
+            record(fk.fixed_base_mul_stepped, err, unsigned_w8=dict(
+                ms=ms, graph_ms=replay, plain_ms=plain, bound_ms=bound["bound_ms"],
+                bound_by=bound["bound_by"]))
         else:
             record(fk.fixed_base_mul_stepped, err)
 
@@ -1130,6 +1203,7 @@ def keygen_phases(dev, rng, roof, card, pts, s, record, steps) -> dict[str, int]
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the keygen path: {missing}")
+    record(fk.mul_tiled, 0, launches_keygen=counts["mul_tiled"])
 
     # 19. K10 at BATCH lanes, width 4: its own entry's launch
     win4 = s.windows(4, 63)
@@ -1534,10 +1608,10 @@ def profile_call(label: str, what: str, fn) -> None:
               f"{e.count:6d}x {e.key[:90]}")
     watched = []
     for kernel in WATCHED:
-        hits = [e for e in rows if f"zc::{kernel}" in e.key]
+        hits = [e for e in rows if re.search(rf"zc::{kernel}\b", e.key)]
         watched.append(f"{kernel} {sum(e.count for e in hits)}x "
                        f"{sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms")
-    phase(label, "K1, K2, K8: " + ", ".join(watched))
+    phase(label, "K1, K2, K6, K8: " + ", ".join(watched))
 
 
 def profile_copies(label: str, fn, top: int = 8) -> None:

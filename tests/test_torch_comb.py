@@ -5,14 +5,17 @@ and, at width 11, its two-window packed Pallas kernel in interpret mode --
 and the oracle, by canonical bytes.  Tables are built at widths 8 and 11
 only (the served widths 13 and 14 take seconds to build).  The scalars
 include k = 2^250 - r, whose top signed window makes the last mixed
-addition a doubling at widths 8, 11, 13 and 14.  The CUDA kernel is held
-against its plain version, limb for limb, by the tests marked ``cuda``."""
+addition a doubling at widths 8, 11, 13 and 14.  The CUDA kernel reads the
+table in the 8 x 32-bit core's Montgomery form, which is held equal to the
+22 x 12 table here, and is held against its plain version's canonical
+limbs by the tests marked ``cuda``."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from zerocaf_tpu import Scalar as JScalar
 from zerocaf_tpu import oracle as o
 from zerocaf_tpu.models import edwards as jed
@@ -20,6 +23,7 @@ from zerocaf_tpu.ops.pallas import field_kernels as jfk
 from zerocaf_tpu_torch import EdwardsPoint, Scalar, interop
 from zerocaf_tpu_torch.models import edwards as ed
 from zerocaf_tpu_torch.models import ristretto as tri
+from zerocaf_tpu_torch.ops import limb as tl
 from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
 
 N = 16
@@ -91,19 +95,25 @@ def test_cache_rejects_a_stale_file(monkeypatch):
     assert np.load(path).shape == (32, 129, 3, 22)
 
 
-@pytest.mark.parametrize("layout", ["rows", "packed"])
+@pytest.mark.parametrize("layout", ["rows", "packed", "core"])
 def test_comb_table_from_numpy_round_trips(layout):
     arr = jed._fixed_base_table_signed(8)
     dev = interop.comb_table_from_numpy(arr, 8, True, layout=layout)
     assert torch.equal(dev, ed.comb_table(8, True, layout, "cpu"))
     assert dev.shape == (32, 129, fk.COMB_WORDS[layout]) and dev.is_contiguous()
-    if layout == "packed":
-        v = dev[..., :33].unflatten(-1, (3, 11))
-        back = torch.cat([v & 4095, v >> 12], dim=-1)
+    if layout == "core":
+        rinv = pow(1 << 256, -1, o.P)
+        back = np.array([o.int_to_limbs(int.from_bytes(w.tobytes(), "little") * rinv % o.P)
+                         for w in dev.numpy().reshape(-1, 8)], dtype=np.int32)
+        assert np.array_equal(back.reshape(arr.shape), arr)
     else:
-        back = dev[..., :66].unflatten(-1, (3, 22))
-    assert np.array_equal(back.numpy(), arr)
-    assert not dev[..., 3 * (22 if layout == "rows" else 11):].any()
+        if layout == "packed":
+            v = dev[..., :33].unflatten(-1, (3, 11))
+            back = torch.cat([v & 4095, v >> 12], dim=-1)
+        else:
+            back = dev[..., :66].unflatten(-1, (3, 22))
+        assert np.array_equal(back.numpy(), arr)
+        assert not dev[..., 3 * (22 if layout == "rows" else 11):].any()
 
 
 def test_comb_table_from_numpy_rejects_bad_tables():
@@ -208,6 +218,21 @@ def test_comb_wrapper_checks_its_inputs(scalars):
         fk.fixed_base_mul_stepped(meta, 8)
 
 
+@pytest.mark.parametrize("width,signed", TABLES)
+def test_core_table_holds_the_limb_table(width, signed):
+    """The kernel's table in the core's form (v R mod p, 8 words a
+    coordinate, 24 an entry), converted back to limbs, is the 22 x 12
+    table; every glue value reads it on CUDA."""
+    core = ed.comb_table(width, signed, "core", "cpu").numpy()
+    host = ed._comb_table_host(width, signed)
+    assert core.shape == host.shape[:2] + (fk.COMB_WORDS["core"],)
+    rinv = pow(1 << 256, -1, o.P)
+    back = [o.int_to_limbs(int.from_bytes(w.tobytes(), "little") * rinv % o.P)
+            for w in core.reshape(-1, 8)]
+    assert np.array_equal(np.array(back, dtype=np.int32), host.reshape(-1, 22))
+    assert {fk.comb_layout(g, pf, "cuda") for g, pf in GLUES} == {"core"}
+
+
 def test_comb_on_cpu_runs_the_plain_version(scalars):
     w = scalars["port"].windows(8)
     before = fk.fixed_base_mul_stepped.launches
@@ -237,5 +262,5 @@ def test_comb_kernel_equals_plain(cuda, scalars, width, signed, glue):
     got = fk.fixed_base_mul_stepped(w, width, signed=signed, glue=glue)
     want = fk.fixed_base_mul_stepped_ref(w, width, signed=signed, glue=glue)
     assert fk.fixed_base_mul_stepped.launches == before + 1
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, tl.canonical(b, tl.FIELD)) for a, b in zip(got, want))
     assert _wire(c[:N].cpu() for c in got) == scalars["want"]

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 import zerocaf_tpu.constants as jc
 from zerocaf_tpu import oracle as jo
 from zerocaf_tpu_torch import constants as tc

@@ -1,9 +1,9 @@
-"""PyTorch port: host rehearsal of the 8 x 32-bit field core of
-``k_bucket_accum``, ``k_combine``, ``k_padd``, ``k_ladder`` and ``k_pow``
-(``zerocaf_tpu_torch/csrc/field32.cuh``, modulo p and modulo r), of the
-per-lane bodies of the ladder (``csrc/ladder32.cuh``) and of the power
-chain (``csrc/pow32.cuh``), and of ``k_combine``'s four-thread point
-operations (``csrc/quad32.cuh``).
+"""PyTorch port: host rehearsal of the 8 x 32-bit field core of every
+kernel (``zerocaf_tpu_torch/csrc/field32.cuh``, modulo p and modulo r), of
+the per-lane bodies of ``k_mul`` (``mul_limbs``), the ladder
+(``csrc/ladder32.cuh``), the power chain (``csrc/pow32.cuh``) and the comb
+(``csrc/comb32.cuh``), and of ``k_combine``'s four-thread point operations
+(``csrc/quad32.cuh``).
 
 The headers are plain C++ whose functions are all ``__host__ __device__
 __forceinline__``.  Here ``g++ -std=c++20 -O1`` compiles them for the host,
@@ -11,10 +11,11 @@ through a shim that defines those qualifiers away, into one small shared
 library that ``ctypes`` loads; the tests hold its multiply, square, add,
 subtract, the SOS square, the conversions across the 22 x 12-bit
 boundary, the moduli's constants, the point formulas (``padd_ext``, ``pdbl``, ``madd``,
-``to_niels``, with the curve constants the kernels read, and their
-four-thread forms, the four roles run as host threads that exchange
-through an array), the ladder and the power chain against the port's
-oracle and its plain versions.  They skip where there is no ``g++``."""
+``to_niels``, the comb's ``madd_affine``, with the curve constants the
+kernels read, and their four-thread forms, the four roles run as host
+threads that exchange through an array), K1's lane, the ladder and the
+power chain against the port's oracle and its plain versions.  They skip
+where there is no ``g++``."""
 
 import ctypes
 import re
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from zerocaf_tpu_torch import oracle as o
 from zerocaf_tpu_torch.ops import limb as tl
 from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
@@ -46,6 +48,7 @@ BINDINGS = r"""
 #include <thread>
 
 #include "shim.h"
+#include "comb32.cuh"
 #include "ladder32.cuh"
 #include "pow32.cuh"
 #include "quad32.cuh"
@@ -313,6 +316,48 @@ void f32_quad(int op, const int32_t* a, const int32_t* b, int32_t* out, int n) {
   }
 }
 }
+
+// K1's lanes (mul_limbs): limbs [n][22] a and b (any int32) -> a b mod m
+// as canonical limbs.
+template <class M>
+static void mul_lanes(const int32_t* a, const int32_t* b, int32_t* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    int32_t x[NL], y[NL], z[NL];
+    for (int k = 0; k < NL; ++k) {
+      x[k] = a[NL * i + k];
+      y[k] = b[NL * i + k];
+    }
+    pack_limbs(mul_limbs<M>(x, y), z);
+    for (int k = 0; k < NL; ++k) out[NL * i + k] = z[k];
+  }
+}
+
+extern "C" {
+void f32_mul_limbs(int spec, const int32_t* a, const int32_t* b, int32_t* out,
+                   int n) {
+  spec ? mul_lanes<ModR>(a, b, out, n) : mul_lanes<ModP>(a, b, out, n);
+}
+
+// k_comb's addition Q += e of points [n][4][22] limbs and affine-Niels
+// entries [n][3][22] limbs (y+x, y-x, 2dxy), negated where neg[i] != 0 (a
+// negative digit), as the kernel runs it: comb_factors, then madd_affine.
+// Canonical limbs out.
+void f32_comb(const int32_t* a, const int32_t* e, const int32_t* neg,
+              int32_t* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    Pt P = pt_in(a + 88 * i);
+    Fe ent[3], f[3];
+    for (int c = 0; c < 3; ++c) {
+      int32_t v[NL];
+      for (int k = 0; k < NL; ++k) v[k] = e[66 * i + NL * c + k];
+      ent[c] = to_mont(from_limbs(v));
+    }
+    comb_factors(f, ent, neg[i] != 0);
+    madd_affine(P, f);
+    pt_out(out + 88 * i, P);
+  }
+}
+}
 """
 
 
@@ -344,7 +389,9 @@ def lib(tmp_path_factory):
                            ("f32_sqr_sos", [i, p, p, i]),
                            ("f32r_op", [i, p, p, p, i]),
                            ("f32_pow", [i, p, p, i, p, i]),
-                           ("f32_quad", [i, p, p, p, i])):
+                           ("f32_quad", [i, p, p, p, i]),
+                           ("f32_mul_limbs", [i, p, p, p, i]),
+                           ("f32_comb", [p, p, p, p, i])):
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = None
     return lib
@@ -457,7 +504,7 @@ def test_limbs_to_core_and_back(lib):
 def test_padd_ext_matches_the_oracle(lib):
     """One unified addition on oracle points, identity and doubling cases
     included: projectively the oracle's sum, and coordinate for coordinate
-    the HWCD formula of field.cuh's padd_ext."""
+    the HWCD formula of the plain padd_tiled_ref (field_kernels.py)."""
     rng = np.random.default_rng(83)
     pts = [o.scalar_mul(o.BASEPOINT, int(k)) for k in rng.integers(1, 1 << 62, 6)]
     ps = pts + [o.IDENTITY, pts[0], pts[1]]
@@ -758,3 +805,69 @@ def test_quad_formulas_equal_the_core(lib, lazy_points, op):
         assert np.array_equal(got, _points(lib, 4, la, lb))
         assert all(o.point_eq(_point_of(r), o.point_add(p, q))
                    for r, p, q in zip(got, a, b))
+
+
+# --- K1's lane and the comb's addition ----------------------------------------
+
+
+@pytest.mark.parametrize("spec", ["p", "r"])
+def test_mul_lane_matches_plain_and_oracle(lib, spec):
+    """K1's lane (field32.cuh mul_limbs, two Montgomery products) modulo p
+    and r: on semi limbs (a product minus a factor, possibly negative),
+    the same limbs negated and one add deep, canonical limbs equal to
+    mul_tiled_ref's; on any int32 limbs, the oracle's product."""
+    tspec = tl.FIELD if spec == "p" else tl.SCALAR
+    m = P if spec == "p" else o.R
+    rng = np.random.default_rng(89)
+    semi, extremes = _pow_inputs(tspec)
+    b = torch.tensor(np.stack([o.int_to_limbs(int.from_bytes(rng.bytes(32), "little") % m)
+                               for _ in semi]).astype(np.int32))
+    ts = torch.tensor(semi)
+    lazy = [(ts, b), (-ts, b), (ts + b, -b)]        # the plain version's inputs
+    for i, (x, y) in enumerate(lazy + [(torch.tensor(extremes), b[:4])]):
+        x, y = np.ascontiguousarray(x.numpy()), np.ascontiguousarray(y.numpy())
+        out = np.zeros(x.shape, dtype=np.int32)
+        lib.f32_mul_limbs(int(spec == "r"), _ptr(x), _ptr(y), _ptr(out), len(x))
+        vals = [o.limbs_to_int(u) * o.limbs_to_int(v) % m for u, v in zip(x, y)]
+        assert [o.limbs_to_int(r) for r in out] == vals
+        assert all(0 <= v < 4096 for v in out.flatten())
+        if i < len(lazy):
+            plain = fk.mul_tiled_ref(torch.tensor(x), torch.tensor(y), tspec)
+            assert np.array_equal(out, tl.canonical(plain, tspec).numpy())
+
+
+def test_comb_addition_matches_plain_and_oracle(lib, lazy_points):
+    """The comb's mixed addition on the core (comb32.cuh comb_factors and
+    madd_affine) of affine-Niels entries (y+x, y-x, 2dxy), half of them
+    negated as a negative digit negates them: canonical limbs equal to the
+    plain _madd_affine_block's on the same signed entries, and the
+    oracle's sum Q + e, coordinate for coordinate its formula."""
+    la, _, a, _ = lazy_points
+    rng = np.random.default_rng(90)
+    d2 = 2 * o.EDWARDS_D % P
+    ents, neg, want = [], [], []
+    for i, q in enumerate(a):
+        x, y = o.point_to_affine(o.scalar_mul(o.BASEPOINT, int(rng.integers(1, 1 << 40))))
+        ents.append([o.int_to_limbs((y + x) % P), o.int_to_limbs((y - x) % P),
+                     o.int_to_limbs(d2 * x * y % P)])
+        neg.append(i % 2)
+        ep, em, et = ((y - x) % P, (y + x) % P, -d2 * x * y % P) if i % 2 else (
+            (y + x) % P, (y - x) % P, d2 * x * y % P)
+        X1, Y1, Z1, T1 = q
+        PP, MM, TT, Z2 = (Y1 + X1) * ep % P, (Y1 - X1) * em % P, T1 * et % P, 2 * Z1
+        E, F, G, H = PP - MM, Z2 - TT, Z2 + TT, PP + MM
+        want.append((E * F % P, G * H % P, F * G % P, E * H % P))
+        sx = (-x if i % 2 else x) % P               # the entry's point, signed
+        assert o.point_eq(want[-1], o.point_add(q, (sx, y, 1, sx * y % P)))
+    ents = np.array(ents, dtype=np.int32)
+    neg = np.array(neg, dtype=np.int32)
+    got = np.zeros(la.shape, dtype=np.int32)
+    lib.f32_comb(_ptr(np.ascontiguousarray(la)), _ptr(ents), _ptr(neg), _ptr(got),
+                 la.shape[0])
+    e = [torch.tensor(ents[:, c]) for c in range(3)]
+    s = torch.tensor(neg != 0)[:, None]
+    plain = fk._madd_affine_block(_coords_of(la), (torch.where(s, e[1], e[0]),
+                                                   torch.where(s, e[0], e[1]),
+                                                   torch.where(s, -e[2], e[2])))
+    assert np.array_equal(got, _canonical_rows(plain))
+    assert [_point_of(r) for r in got] == want

@@ -3,12 +3,10 @@
 On the CPU the plain PyTorch versions are held against the JAX package's
 plain paths (which tests/test_pallas.py pins bit-exact to the Pallas
 kernels) and the oracle.  The CUDA kernels are held against their plain
-versions by the tests marked ``cuda``: they skip without a card.  K1
-computes in its plain version's 22 x 12 limb algebra and is compared limb
-for limb; the power chain (K2) and the ladders (K3, K4, K10) compute on the
-8 x 32-bit core and write canonical limbs, compared with the plain
-versions' canonical limbs.  Every comparison is exact (integer
-arithmetic)."""
+versions by the tests marked ``cuda``: they skip without a card.  The
+kernels compute on the 8 x 32-bit core and write canonical limbs, compared
+with the plain versions' canonical limbs.  Every comparison is exact
+(integer arithmetic)."""
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from zerocaf_tpu import constants as JC
 from zerocaf_tpu import oracle as o
 from zerocaf_tpu.models import edwards as jed
@@ -110,6 +109,46 @@ def test_mul_tiled_on_cpu_runs_the_plain_version(elems):
     before = fk.mul_tiled.launches
     assert torch.equal(fk.mul_tiled(a, b), fk.mul_tiled_ref(a, b))
     assert fk.mul_tiled.launches == before
+
+
+@pytest.mark.parametrize("spec", ["field", "scalar"])
+def test_mul_tiled_on_the_kernel_tests_operands(elems, spec):
+    """The operands that test_mul_tiled_kernel_equals_plain gives K1 -- semi
+    limbs, the same negated, one add deep, views one lane in -- give the
+    oracle's products on the CPU: the plain version that the kernel is
+    held against is right on each of them."""
+    tspec, m = (tl.FIELD, o.P) if spec == "field" else (tl.SCALAR, o.R)
+    semi, b = torch.tensor(elems["semi"]), torch.tensor(elems["B"])
+    for x, y in ((semi, b), (-semi, b), (semi + b, -b), (semi[1:], b[1:])):
+        want = [o.limbs_to_int(u) * o.limbs_to_int(v) % m
+                for u, v in zip(x.numpy(), y.numpy())]
+        assert _ints(fk.mul_tiled(x, y, tspec), tspec) == want
+
+
+def _word_ints(words):
+    """[n, 8] int32 words (uint32 bits) -> the n integers they spell."""
+    w = words.numpy().astype(np.int64) & 0xFFFFFFFF
+    return [sum(int(v) << (32 * i) for i, v in enumerate(r)) for r in w]
+
+
+def test_limbs_to_words_spells_the_same_integers():
+    """Canonical limbs -> the 8 little-endian 32-bit words of the same
+    integer, at the edges of the words and of the limbs."""
+    rng = np.random.default_rng(33)
+    vals = [0, 1, 4095, 4096, (1 << 31) - 1, 1 << 31, (1 << 32) - 1, 1 << 32,
+            (1 << 252) + 7, o.P - 1] + [int.from_bytes(rng.bytes(32), "little") % o.P
+                                        for _ in range(N)]
+    assert _word_ints(fk.limbs_to_words(torch.tensor(_limbs(vals)))) == vals
+
+
+def test_core_words_are_the_montgomery_form(elems):
+    """core_words of the limbs the engine makes (semi, negated, one add
+    deep) is v R mod p (R = 2^256), the form the kernels' core and K6's
+    table hold."""
+    semi, b = torch.tensor(elems["semi"]), torch.tensor(elems["B"])
+    for x in (semi, -semi, semi + b):
+        want = [o.limbs_to_int(r) * (1 << 256) % o.P for r in x.numpy()]
+        assert _word_ints(fk.core_words(x)) == want
 
 
 # --- K2 ---------------------------------------------------------------------
@@ -244,10 +283,19 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("spec", ["field", "scalar"])
 def test_mul_tiled_kernel_equals_plain(cuda, elems, spec):
+    """K1 on the core against its plain version's canonical limbs, at 200
+    lanes (a ragged last block) and 32768 (the serving batch): semi limbs
+    (a product minus a factor, possibly negative), the same limbs negated,
+    one add deep, and views that start one lane in (not 16-byte aligned:
+    the kernel's word-by-word tile copy)."""
     tspec = tl.FIELD if spec == "field" else tl.SCALAR
-    a = torch.tensor(np.tile(elems["semi"], (25, 1)), device=cuda)   # 200 lanes
-    b = torch.tensor(np.tile(elems["B"], (25, 1)), device=cuda)
-    assert torch.equal(fk.mul_tiled(a, b, tspec), fk.mul_tiled_ref(a, b, tspec))
+    for lanes in (200, 32768):
+        reps = -(-lanes // N)
+        semi = torch.tensor(np.tile(elems["semi"], (reps, 1))[:lanes], device=cuda)
+        b = torch.tensor(np.tile(elems["B"], (reps, 1))[:lanes], device=cuda)
+        for x, y in ((semi, b), (-semi, b), (semi + b, -b), (semi[1:], b[1:])):
+            want = tl.canonical(fk.mul_tiled_ref(x, y, tspec), tspec)
+            assert torch.equal(fk.mul_tiled(x, y, tspec), want)
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from zerocaf_tpu import oracle as o
 from zerocaf_tpu.ops import limb as jl
 from zerocaf_tpu_torch.ops import limb as tl

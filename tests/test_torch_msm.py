@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from zerocaf_tpu import oracle as o
 from zerocaf_tpu.models import edwards as jed
 from zerocaf_tpu.scalar import Scalar as JScalar
@@ -330,16 +331,15 @@ def port_engine():
     return Engine(batch=N, device="cpu")
 
 
-def test_engine_msm_matches_jax_msm_and_oracle(case, port_engine):
+def test_engine_msm_matches_jax_msm_and_oracle(case, port_engine, jax_scan_wire):
     """The port's Engine.msm, the JAX package's scan-route msm on the same
     points and scalars (its XLA path, without the compile of a JAX
-    engine's decode and encode), and the oracle give the same bytes."""
+    engine's decode and encode; computed once for the module by
+    jax_scan_wire), and the oracle give the same bytes."""
     wire, ok = port_engine.msm(torch.tensor(case["wire"]), torch.tensor(case["sc"]), c=4)
-    jpts = jed.EdwardsPoint(*(jnp.asarray(c) for c in _coords(case["pts"])))
-    jsum = jmsm.msm(jpts, JScalar.from_int(case["ss"]), c=4, dense=False)
     assert bool(ok)
     assert wire.numpy().tobytes() == case["want"]
-    assert o.ristretto_compress(_ints(_tpt(jsum._tuple()))[0]) == case["want"]
+    assert jax_scan_wire == case["want"]
 
 
 def test_engine_msm_invalid_lane(case, port_engine):
@@ -570,9 +570,9 @@ DENSE_OPTIONS = {
 
 @pytest.fixture(scope="module")
 def jax_scan_wire(case):
-    """The JAX package's scan-route msm (its XLA path) on the case: the
-    MSM's value does not depend on c, and c = 4 shares its compile with
-    test_engine_msm_matches_jax_msm_and_oracle."""
+    """The JAX package's scan-route msm (its XLA path) on the case, at c = 4
+    (the MSM's value does not depend on c), compiled and run once for
+    test_engine_msm_matches_jax_msm_and_oracle and test_msm_dense_options."""
     jpts = jed.EdwardsPoint(*(jnp.asarray(c) for c in _coords(case["pts"])))
     jsum = jmsm.msm(jpts, JScalar.from_int(case["ss"]), c=4, dense=False)
     return o.ristretto_compress(_ints(_tpt(jsum._tuple()))[0])

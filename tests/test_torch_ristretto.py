@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from test_oracle import RISTRETTO_SMALL_MULTIPLES
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from zerocaf_tpu import oracle as o
 from zerocaf_tpu.models import ristretto as jri
 from zerocaf_tpu_torch import (CompressedRistretto, EdwardsPoint, FieldElement,

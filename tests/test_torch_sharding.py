@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from zerocaf_tpu import EdwardsPoint as JPoint
 from zerocaf_tpu import Scalar as JScalar
 from zerocaf_tpu import oracle as o

@@ -1,10 +1,11 @@
 // The 8 x 32-bit field core of the Hopper kernels: arithmetic modulo m =
 // 2^(224 + s) + delta (delta < 2^125, s = 28 for the field prime p, s = 25
 // for the group order r) in Montgomery form, and the Edwards formulas over
-// p built from it.  k_bucket_accum (K7, K9, K11, K12) and k_combine (K8;
-// csrc/msm_kernels.cu), and k_padd (K5), k_ladder (K3, K4, K10) and k_pow
-// (K2, both moduli; csrc/pow32.cuh) (csrc/field_kernels.cu) compute on it;
-// k_mul and k_comb keep the 22 x 12-bit limbs of field.cuh.
+// p built from it.  Every kernel computes on it: k_bucket_accum (K7, K9,
+// K11, K12) and k_combine (K8) in csrc/msm_kernels.cu, and k_mul (K1, both
+// moduli), k_pow (K2, both moduli; csrc/pow32.cuh), k_ladder (K3, K4, K10;
+// csrc/ladder32.cuh), k_padd (K5) and k_comb (K6; csrc/comb32.cuh) in
+// csrc/field_kernels.cu.
 //
 // Why 32-bit words: Hopper multiplies 32 x 32 -> 64 bits (IMAD.WIDE.U32),
 // which the TPU lacked; that lack is the only reason for the 12-bit radix.
@@ -150,6 +151,16 @@ __host__ __device__ __forceinline__ Fe fe_one() {
   Fe r;
 #pragma unroll
   for (int i = 0; i < NW; ++i) r.w[i] = M::one(i);
+  return r;
+}
+
+// c ? a : b, by mask.
+__host__ __device__ __forceinline__ Fe fe_pick(bool c, const Fe& a,
+                                               const Fe& b) {
+  const uint32_t m = 0u - (uint32_t)c;
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) r.w[i] = (a.w[i] & m) | (b.w[i] & ~m);
   return r;
 }
 
@@ -551,13 +562,24 @@ __host__ __device__ __forceinline__ void to_limbs(const Fe& a,
   pack_limbs(from_mont<M>(a), out);
 }
 
+// k_mul's lane (K1): a b mod m for two signed lazy 22 x 12 operands, as a
+// plain value in [0, m) for pack_limbs.  A Montgomery product of a plain a
+// and b R is a b: two multiplies (to_mont, then the product) and no
+// conversion out.
+template <class M = ModP>
+__host__ __device__ __forceinline__ Fe mul_limbs(const int32_t (&a)[NL],
+                                                 const int32_t (&b)[NL]) {
+  return fe_mul<M>(from_limbs<M>(a), to_mont<M>(from_limbs<M>(b)));
+}
+
 // ---------------------------------------------------------------------------
 // Edwards addition over p (a = -1)
 // ---------------------------------------------------------------------------
 
-// Each formula is field.cuh's, term for term: the same formula gives the
-// same field values, whatever the representation, so a kernel on this core
-// and its plain version (the 22 x 12 algebra) agree on canonical limbs.
+// Each formula is its plain version's (ops/kernels/field_kernels.py, on
+// the 22 x 12 limbs of ops/limb.py), term for term: the same formula gives
+// the same field values, whatever the representation, so a kernel on this
+// core and its plain version agree on canonical limbs.
 
 // Unified extended HWCD addition R = P + Q, 10 multiplies, with Q's
 // coordinate c read by q(c) where the formula first needs it (X and Y,

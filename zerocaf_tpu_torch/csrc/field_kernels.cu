@@ -1,17 +1,14 @@
 // Hopper kernels K1-K6 and K10 (field multiply, power chains, the ladders,
-// batched point addition and the fixed-base comb), one thread per lane, and
-// a plain C launcher per kernel (bound with ctypes by
-// zerocaf_tpu_torch/ops/kernels/build.py).
+// batched point addition and the fixed-base comb), and a plain C launcher
+// per kernel (bound with ctypes by zerocaf_tpu_torch/ops/kernels/build.py).
 // Every launcher enqueues on the stream it is given and returns
 // cudaGetLastError().
 //
-// Two field cores.  k_pow (K2), k_padd (K5) and k_ladder (K3, K4, K10)
-// compute on the 8 x 32-bit Montgomery core of field32.cuh (pow32.cuh and
-// ladder32.cuh hold the per-lane bodies of k_pow and k_ladder): they
-// convert their 22 x 12-bit inputs at entry, and write canonical limbs,
-// equal to their plain versions' results after canonicalization.  k_mul
-// and k_comb keep the 22 x 12-bit limbs of field.cuh and agree with their
-// plain versions limb for limb.
+// One field core: every kernel computes on the 8 x 32-bit Montgomery core
+// of field32.cuh (pow32.cuh, ladder32.cuh and comb32.cuh hold the per-lane
+// bodies of k_pow, k_ladder and k_comb).  The kernels convert their
+// 22 x 12-bit inputs at entry and write canonical limbs, equal to their
+// plain versions' results after canonicalization.
 //
 // Layout: public tensors are lane-major [n][22] int32.  k_ladder's per-lane
 // tables live in a global scratch buffer that the wrapper allocates, lane
@@ -32,7 +29,7 @@
 
 #include <cstdint>
 
-#include "field.cuh"
+#include "comb32.cuh"
 #include "field32.cuh"
 #include "init.cuh"
 #include "ladder32.cuh"
@@ -40,29 +37,88 @@
 
 namespace zc {
 
+constexpr int L = zc32::NL;            // limbs of a 22 x 12-bit element
 constexpr int BLOCK = 128;
 constexpr int CORE_MIN_BLOCKS = 4;     // k_padd's and k_ladder's blocks per SM
 constexpr int WARP = 32;
 constexpr int POW_BLOCK = 64;          // k_pow: 30,720 B of table a block
+constexpr int COMB_CORE_WORDS = 3 * zc32::NW;   // k_comb: words of an entry
 
 __device__ __forceinline__ int lane_index() {
   return blockIdx.x * blockDim.x + threadIdx.x;
 }
 
+// A block's contiguous tile of `words` int32 between device and shared
+// memory, the block's threads striding over it: in 16-byte pieces where
+// both ends are 16-byte aligned (VEC), else word by word (still
+// coalesced), then the words past the last full piece.
+template <bool VEC>
+__device__ __forceinline__ void tile_copy(int32_t* __restrict__ dst,
+                                          const int32_t* __restrict__ src,
+                                          int words) {
+  int done = 0;
+  if (VEC) {
+    done = words & ~3;
+    for (int i = threadIdx.x; i < words / 4; i += blockDim.x)
+      reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
+  }
+  for (int i = done + threadIdx.x; i < words; i += blockDim.x) dst[i] = src[i];
+}
+
 // K1 -- replaces zerocaf_tpu/ops/pallas/field_kernels.py:mul_tiled
-// (_mul_kernel / _mul_block).  a * b mod p (spec 0) or mod r (spec 1).
-// Bound by integer multiply-adds: one multiply per thread, 264 bytes of
-// traffic against ~1100 int32 operations.
+// (_mul_kernel / _mul_block).  a * b mod p (M = ModP) or mod r (ModR) on
+// the 8 x 32-bit core: zc32::mul_limbs, a Montgomery product of the plain
+// a and b R (two multiplies), written as canonical limbs, which meet the
+// wrapper's contract (semi limbs out) as they are.  The inputs are signed
+// lazy limbs, at most one add deep.
+//
+// Bound by bytes: 264 a lane (a and b read, the product written) against
+// two multiplies; at 2^20 lanes (Engine.msm's decode) 0.083 ms of memory.
+// The 22 x 12 kernel before this one loaded its 22 limbs word by word, 88
+// bytes apart from the next thread's, so each load instruction of a warp
+// touched some 22 sectors, and passed its operands through local memory
+// to a non-inlined multiply (0.30 ms at 2^20 lanes).  Here a block's
+// 128 lanes of a, b and out are contiguous tiles of 11,264 bytes: a and b
+// arrive in shared memory in 16-byte coalesced loads, each thread reads
+// its own rows in 8-byte pieces (a warp's 8-byte reads at a stride of 88
+// bytes fall in 32 different banks), writes its product into a's tile,
+// and the block stores that tile in 16-byte pieces: 0.14 ms at 2^20
+// lanes, where per-thread 8-byte loads from device memory took 0.19 (on
+// an H100, chip_variants.py, PERF.md).  Operands that are not 16-byte
+// aligned (a view one lane in) are copied word by word.
+template <class M, bool VEC>
 __global__ void __launch_bounds__(BLOCK)
     k_mul(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-          int32_t* __restrict__ out, int n, int spec) {
-  const int lane = lane_index();
-  if (lane >= n) return;
-  Fe x, y;
-  fe_load(x, a, lane);
-  fe_load(y, b, lane);
-  fe_mul(x, x, y, spec);
-  fe_store(out, lane, x);
+          int32_t* __restrict__ out, int n) {
+  __shared__ __align__(16) int32_t ta[BLOCK * L];
+  __shared__ __align__(16) int32_t tb[BLOCK * L];
+  const size_t first = (size_t)blockIdx.x * BLOCK;
+  const int count = min(BLOCK, n - (int)first);
+  const int words = count * L;
+  tile_copy<VEC>(ta, a + first * L, words);
+  tile_copy<VEC>(tb, b + first * L, words);
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < count) {
+    int32_t x[L], y[L];
+    const int2* ra = reinterpret_cast<const int2*>(ta + t * L);
+    const int2* rb = reinterpret_cast<const int2*>(tb + t * L);
+#pragma unroll
+    for (int k = 0; k < L / 2; ++k) {
+      const int2 u = ra[k], v = rb[k];
+      x[2 * k] = u.x;
+      x[2 * k + 1] = u.y;
+      y[2 * k] = v.x;
+      y[2 * k + 1] = v.y;
+    }
+    int32_t z[L];
+    zc32::pack_limbs(zc32::mul_limbs<M>(x, y), z);
+    int2* rz = reinterpret_cast<int2*>(ta + t * L);
+#pragma unroll
+    for (int k = 0; k < L / 2; ++k) rz[k] = make_int2(z[2 * k], z[2 * k + 1]);
+  }
+  __syncthreads();
+  tile_copy<VEC>(out + first * L, ta, words);
 }
 
 // 22 x 12-bit limbs of lane `lane` in a lane-major [n][22] plane -> the
@@ -321,100 +377,75 @@ __global__ void __launch_bounds__(BLOCK, CORE_MIN_BLOCKS)
 // entry at |d| is loaded and the sign swaps y+x with y-x and negates 2dxy.
 // Digits are taken mod 2^width, so every load is inside the table.
 //
-// The table is [nwin][nent][words] int32 in one of two layouts: rows (the
-// three coordinates' 22 limbs, words = 68) or packed (limb i | limb i+11 <<
-// 12, words = 36; COMB_WORDS in field_kernels.py); both pad an entry to a multiple of 16 bytes, so it
-// arrives in 16-byte loads.  The load is indexed by the secret digit (not
-// oblivious at cache-line granularity, as in the reference).  One thread
-// runs all windows of its lane in one launch with Q in registers; the TPU
-// ran one program per window pair with Q through HBM between them.  Bound
-// by integer multiply-adds (7 field multiplies a window, 126 a lane at
-// width 14): the table entries are 272 or 144 bytes a window a lane from
-// an 18-40 MB table that mostly stays in the 50 MB L2.
-constexpr int ROWS_WORDS = 68;
-constexpr int PACKED_WORDS = 36;
-
-template <int WORDS>
-__device__ __forceinline__ void comb_load(int32_t (&buf)[WORDS],
-                                          const int32_t* entry) {
-  const int4* src = reinterpret_cast<const int4*>(entry);
-#pragma unroll
-  for (int k = 0; k < WORDS / 4; ++k) {
-    const int4 v = __ldg(src + k);
-    buf[4 * k] = v.x;
-    buf[4 * k + 1] = v.y;
-    buf[4 * k + 2] = v.z;
-    buf[4 * k + 3] = v.w;
-  }
-}
-
-__device__ __forceinline__ void comb_entry(Fe (&e)[3], const int32_t* entry,
-                                           int packed) {
-  if (packed) {
-    int32_t buf[PACKED_WORDS];
-    comb_load(buf, entry);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-#pragma unroll
-      for (int k = 0; k < 11; ++k) {
-        e[j].v[k] = buf[11 * j + k] & MASK;
-        e[j].v[k + 11] = buf[11 * j + k] >> W;
-      }
-    }
-  } else {
-    int32_t buf[ROWS_WORDS];
-    comb_load(buf, entry);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-#pragma unroll
-      for (int k = 0; k < L; ++k) e[j].v[k] = buf[L * j + k];
-    }
-  }
-}
-
+// On the 8 x 32-bit core, one thread a lane: zc32::madd_affine
+// (comb32.cuh), the plain version's field values, written as canonical
+// limbs [4][n][22].  The table is [nwin][nent][3][8] words in Montgomery
+// form (y+x, y-x, 2dxy: 96 bytes an entry, six 16-byte loads), built once
+// for each (width, signed, device) by models/edwards.py.  The load is
+// indexed by the secret digit: the comb is not oblivious, as in the
+// reference and the JAX package (docs/CONSTANT_TIME.md: not oblivious at
+// cache-line granularity).
+//
+// What bounds it: latency.  A lane's windows run in order (18 at signed
+// width 14) with Q in registers, and at 32768 lanes the card holds 1,024
+// warps, under two for each scheduler: too few to hide the latency of the
+// multiplies' carry chains (one dependent multiply of the core takes about
+// 0.84 us) and of the entry's load.  The 7 multiplies a window bound it at
+// 0.026 ms of the card's multiply rate; it takes some 0.17 ms, against the
+// 22 x 12 kernel's 0.44.  Two designs that shorten the chain ran slower or
+// barely faster on an H100 (chip_variants.py, PERF.md): a quad of four
+// threads a lane (k_combine's form: 4,096 warps, two dependent multiplies
+// a window), which repeats every selection and addition on four threads,
+// and each round of independent multiplies interleaved in one rolled loop
+// (3-6 % faster, and it spilled: the PTX step's carry flag keeps ptxas from
+// interleaving two chains).  The table (14.2 MB at signed width 14, 0.79 MB
+// at unsigned width 8) stays in the 50 MB L2.
 __global__ void __launch_bounds__(BLOCK)
-    k_comb(const int32_t* __restrict__ tbl, const int32_t* __restrict__ win,
-           int nwin, int width, int is_signed, int nent, int packed,
+    k_comb(const uint32_t* __restrict__ tbl, const int32_t* __restrict__ win,
+           int nwin, int width, int is_signed, int nent,
            int32_t* __restrict__ out, int n) {
   const int lane = lane_index();
   if (lane >= n) return;
   const int32_t* wl = win + (size_t)lane * nwin;
   const int h = 1 << (width - 1), full = 1 << width;
-  const int words = packed ? PACKED_WORDS : ROWS_WORDS;
-  Pt Q;
-  Q.X = fe_small(0);
-  Q.Y = fe_small(1);
-  Q.Z = fe_small(1);
-  Q.T = fe_small(0);
+  zc32::Pt Q;
+  Q.X = zc32::fe_zero();
+  Q.Y = zc32::fe_one();
+  Q.Z = Q.Y;
+  Q.T = Q.X;
   int carry = 0;
   for (int w = 0; w < nwin; ++w) {
-    int d = wl[w] & (full - 1);
+    int d = __ldg(wl + w) & (full - 1);
     if (is_signed) {
       d += carry;
       carry = d >= h;
       d -= carry * full;
     }
-    const int32_t s = -(int32_t)(d < 0);
-    const int a = (d ^ s) - s;
-    Fe e[3];
-    comb_entry(e, tbl + ((size_t)w * nent + a) * words, packed);
+    const int s = -(int)(d < 0);
+    const int a = (d ^ s) - s;           // |d|
+    const uint4* src = reinterpret_cast<const uint4*>(
+        tbl + ((size_t)w * nent + a) * COMB_CORE_WORDS);
+    zc32::Fe e[3], f[3];
 #pragma unroll
-    for (int k = 0; k < L; ++k) {
-      const int32_t p = e[0].v[k], q = e[1].v[k];
-      e[0].v[k] = (q & s) | (p & ~s);
-      e[1].v[k] = (p & s) | (q & ~s);
-      e[2].v[k] = (e[2].v[k] ^ s) - s;
+    for (int k = 0; k < 3; ++k) {
+      const uint4 lo = __ldg(src + 2 * k), hi = __ldg(src + 2 * k + 1);
+      e[k] = zc32::Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
     }
-    madd_affine(Q, e[0], e[1], e[2]);
+    zc32::comb_factors(f, e, d < 0);
+    zc32::madd_affine(Q, f);
   }
   const size_t plane = L * (size_t)n;
-  fe_store(out, lane, Q.X);
-  fe_store(out + plane, lane, Q.Y);
-  fe_store(out + 2 * plane, lane, Q.Z);
-  fe_store(out + 3 * plane, lane, Q.T);
+  core_store(out, lane, Q.X);
+  core_store(out + plane, lane, Q.Y);
+  core_store(out + 2 * plane, lane, Q.Z);
+  core_store(out + 3 * plane, lane, Q.T);
 }
 
 inline int blocks_for(int n) { return (n + BLOCK - 1) / BLOCK; }
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
 // True where k_padd may read an operand in 8-byte pieces.
 inline bool padd_pairs(const PaddIn& in) {
@@ -430,10 +461,15 @@ inline bool padd_pairs(const PaddIn& in) {
 
 extern "C" {
 
+// a, b, out: [n][22]; spec 0 multiplies mod p, 1 mod r.
 int zc_mul(const int32_t* a, const int32_t* b, int32_t* out, int n, int spec,
            void* stream) {
-  zc::k_mul<<<zc::blocks_for(n), zc::BLOCK, 0,
-              static_cast<cudaStream_t>(stream)>>>(a, b, out, n, spec);
+  const bool vec = zc::aligned16(a) && zc::aligned16(b) && zc::aligned16(out);
+  void (*kernel)(const int32_t*, const int32_t*, int32_t*, int) =
+      spec ? (vec ? zc::k_mul<zc32::ModR, true> : zc::k_mul<zc32::ModR, false>)
+           : (vec ? zc::k_mul<zc32::ModP, true> : zc::k_mul<zc32::ModP, false>);
+  kernel<<<zc::blocks_for(n), zc::BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, b, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,15 +513,14 @@ int zc_padd(const int32_t* p0, const int32_t* p1, const int32_t* p2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// tbl: [nwin][nent][words] comb table, rows (words 68) or packed (words
-// 36); win: [n][nwin] digits; out: [4][n][22].
+// tbl: [nwin][nent][3][8] comb table in the core's form; win: [n][nwin]
+// digits; out: [4][n][22].
 int zc_comb(const int32_t* tbl, const int32_t* win, int nwin, int width,
-            int is_signed, int nent, int packed, int32_t* out, int n,
-            void* stream) {
+            int is_signed, int nent, int32_t* out, int n, void* stream) {
   zc::k_comb<<<zc::blocks_for(n), zc::BLOCK, 0,
-               static_cast<cudaStream_t>(stream)>>>(tbl, win, nwin, width,
-                                                    is_signed, nent, packed,
-                                                    out, n);
+               static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint32_t*>(tbl), win, nwin, width, is_signed,
+      nent, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

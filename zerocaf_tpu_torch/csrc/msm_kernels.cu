@@ -9,34 +9,25 @@
 
 #include <cuda_runtime.h>
 
-#include "field.cuh"
 #include "field32.cuh"
 #include "init.cuh"
 #include "quad32.cuh"
 
 namespace zc {
 
+constexpr int L = zc32::NL;            // limbs of a 22 x 12-bit element
 constexpr int ACCUM_BLOCK = 128;
 constexpr int ACCUM_MIN_BLOCKS = 4;    // k_bucket_accum's blocks per SM
 constexpr int MAX_COMBINE_WINDOWS = 128;   // k_combine: a quad a window
 constexpr int PT = 4 * L;              // int32 of one extended point
 
-// One extended point stored as 88 contiguous int32 (X, Y, Z, T limbs).
-// The flat index is a compile-time constant under the unrolled loops, so
-// the select resolves statically.
-__device__ __forceinline__ int32_t& pt_limb(Pt& p, int f) {
-  return f < L ? p.X.v[f] : f < 2 * L ? p.Y.v[f - L]
-       : f < 3 * L ? p.Z.v[f - 2 * L] : p.T.v[f - 3 * L];
-}
-
-// 16-byte stores of a contiguous point (352 bytes, 16-byte aligned: every
-// table entry starts at a multiple of 352 bytes).
-__device__ __forceinline__ void pt_store(int32_t* dst, Pt& p) {
+// 16-byte stores of a contiguous point's 88 limbs (X, Y, Z, T; 352 bytes,
+// 16-byte aligned: every table entry starts at a multiple of 352 bytes).
+__device__ __forceinline__ void pt_store(int32_t* dst, const int32_t (&p)[PT]) {
   int4* d = reinterpret_cast<int4*>(dst);
 #pragma unroll
   for (int q = 0; q < PT / 4; ++q)
-    d[q] = make_int4(pt_limb(p, 4 * q), pt_limb(p, 4 * q + 1),
-                     pt_limb(p, 4 * q + 2), pt_limb(p, 4 * q + 3));
+    d[q] = make_int4(p[4 * q], p[4 * q + 1], p[4 * q + 2], p[4 * q + 3]);
 }
 
 constexpr int PT32 = 4 * zc32::NW;     // words of one core-form point
@@ -162,11 +153,14 @@ __global__ void __launch_bounds__(ACCUM_BLOCK, ACCUM_MIN_BLOCKS)
     int32_t* slot = mine + b * stride;
     zc32::Pt E;
     pt32_load(E, reinterpret_cast<const uint32_t*>(slot));
-    Pt out;
-    zc32::to_limbs(E.X, out.X.v);
-    zc32::to_limbs(E.Y, out.Y.v);
-    zc32::to_limbs(E.Z, out.Z.v);
-    zc32::to_limbs(E.T, out.T.v);
+    int32_t out[PT];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      int32_t limbs[L];
+      zc32::to_limbs(zc32::coord(E, c), limbs);
+#pragma unroll
+      for (int k = 0; k < L; ++k) out[c * L + k] = limbs[k];
+    }
     pt_store(slot, out);
   }
 }

@@ -33,16 +33,6 @@
 
 namespace zc32 {
 
-// c ? a : b, by mask.
-__host__ __device__ __forceinline__ Fe fe_pick(bool c, const Fe& a,
-                                               const Fe& b) {
-  const uint32_t m = 0u - (uint32_t)c;
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) r.w[i] = (a.w[i] & m) | (b.w[i] & ~m);
-  return r;
-}
-
 // The roles whose coordinates role j combines into its round-1 operand of
 // an addition, a and b: X and Y for roles 0 and 1, T for role 2, Z for
 // role 3 (b = a there).

@@ -48,8 +48,9 @@ def comb_table_from_numpy(arr, width: int, signed: bool, device=None,
                           layout: str = "rows") -> torch.Tensor:
     """A comb table as the JAX package keeps it (``_fixed_base_table`` or
     ``_fixed_base_table_signed``: int32 [nwin, nent, 3, 22], canonical
-    limbs) -> the port's device table in the kernel's ``layout``
-    ("rows" or "packed", see ``field_kernels.comb_entries``)."""
+    limbs) -> the port's device table in ``layout``: "core" (the
+    kernel's), "rows" or "packed" (the plain version's; see
+    ``field_kernels.comb_entries``)."""
     a = np.asarray(arr)
     want = _fk.comb_shape(width, signed)
     if a.dtype != np.int32 or a.shape != want:

@@ -210,8 +210,9 @@ def _fixed_base_table_signed(width: int) -> np.ndarray:
 
 
 def comb_table(width: int, signed: bool, layout: str, device) -> torch.Tensor:
-    """The comb table in the kernel's ``layout`` on ``device``, uploaded
-    once and kept, so that a call uploads nothing."""
+    """The comb table in ``layout`` on ``device`` ("core" for the kernel,
+    "rows" or "packed" for its plain version), uploaded and converted once
+    and kept, so that a call after the first uploads nothing."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -230,12 +231,12 @@ def _madd_niels(Q, entry):
 
 
 def _fixed_base_mul(windows, width: int = COMB_WIDTH):
-    """The unsigned comb (K6 on the rows table)."""
+    """The unsigned comb (K6; its plain version on the rows table)."""
     return _fk.fixed_base_mul_stepped(windows, width)
 
 
 def _fixed_base_mul_signed(windows, width: int):
-    """The signed comb (K6 on the packed table)."""
+    """The signed comb (K6; its plain version on the packed table)."""
     return _fk.fixed_base_mul_stepped(windows, width, signed=True, glue="packed2")
 
 
@@ -266,9 +267,10 @@ class EdwardsPoint:
                       use_fused: bool | None = None) -> "EdwardsPoint":
         """B*k by the fixed-base comb (K6): ceil(250/width) 7M mixed
         additions, no doublings.  width None runs the signed comb at
-        COMB_WIDTH_SIGNED on the packed table; an explicit width the
-        unsigned comb at that width on the rows table.  The kernel on CUDA,
-        its plain version on the CPU: one route on both devices.  The
+        COMB_WIDTH_SIGNED, an explicit width the unsigned comb at that
+        width.  The kernel on CUDA (on the table in the core's form), its
+        plain version on the CPU (the signed comb on the packed table, the
+        unsigned on the rows table): one route on both devices.  The
         table read is indexed by the secret digit (see the module
         docstring).  use_fused is accepted for the JAX package's
         signature, where it picks its TPU kernel or its XLA comb; it has

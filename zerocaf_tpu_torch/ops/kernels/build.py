@@ -6,7 +6,9 @@ interface, ``_build/lib<stem>_<hash>.so``, where ``<hash>`` is the hash of
 all the sources (headers included); all sources compile at once, one
 ``nvcc`` process each.  The libraries are loaded with ``ctypes``; nothing
 here runs at import.  Each library's ``-Xptxas -v`` report (registers,
-spills) is kept beside it as ``.log``.
+spills) is kept beside it as ``.log``.  The kernels' constants are
+constant-initialised in ``csrc/field32.cuh``: a library needs no set-up
+before its first launch.
 """
 
 from __future__ import annotations
@@ -19,10 +21,7 @@ import subprocess
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
-
-from ... import constants as C
 
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
@@ -40,7 +39,7 @@ SIGNATURES = {
         "zc_ladder": [_ptr, _ptr, _i32, _i32, _i32, _ptr, _ptr, _i32, _ptr],
         "zc_padd": [*[_ptr] * 4, _i32, _i32, *[_ptr] * 4, _i32, _i32, _ptr,
                     _i32, _i32, _ptr],
-        "zc_comb": [_ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _ptr, _i32, _ptr],
+        "zc_comb": [_ptr, _ptr, _i32, _i32, _i32, _i32, _ptr, _i32, _ptr],
     },
     "msm_kernels": {
         "zc_to_field32": [_ptr, _ptr, _i32, _ptr],
@@ -51,7 +50,6 @@ SIGNATURES = {
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
-_initialized: set[tuple[str, int]] = set()
 
 
 def sources() -> list[Path]:
@@ -128,31 +126,19 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.zc_init.argtypes = [_ptr] * 2
-    lib.zc_init.restype = ctypes.c_int
     lib.zc_error_string.argtypes = [_i32]
     lib.zc_error_string.restype = ctypes.c_char_p
 
 
-def load(device: torch.device, stem: str) -> ctypes.CDLL:
+def load(stem: str) -> ctypes.CDLL:
     """The library built from ``csrc/<stem>.cu`` (all libraries are built if
-    needed), with its constant memory written on ``device``.  Raises if it
-    cannot be built or loaded."""
+    needed).  Raises if it cannot be built or loaded."""
     if stem not in _libs:
         paths, _, _ = build()
         lib = ctypes.CDLL(str(paths[stem]))
         _declare(lib, stem)
         _libs[stem] = lib
-    lib = _libs[stem]
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if (stem, index) not in _initialized:
-        consts = [np.ascontiguousarray(a, dtype=np.int32)
-                  for a in (C.FOLD_C_P_LIMBS, C.FOLD_C_R_LIMBS)]
-        with torch.cuda.device(index):
-            rc = lib.zc_init(*[a.ctypes.data_as(ctypes.c_void_p) for a in consts])
-        check(lib, rc, f"zc_init ({stem})")
-        _initialized.add((stem, index))
-    return lib
+    return _libs[stem]
 
 
 def launch(name: str, device: torch.device, stem: str, fn_name: str,
@@ -160,7 +146,7 @@ def launch(name: str, device: torch.device, stem: str, fn_name: str,
     """Call the launcher ``fn_name`` of library ``stem`` on ``device``'s
     current stream and raise if the launch was refused.  Tensors pass as
     their data pointers, everything else as a C int."""
-    lib = load(device, stem)
+    lib = load(stem)
     cargs = []
     for a in args:
         if isinstance(a, torch.Tensor):

@@ -12,23 +12,21 @@ versions (zerocaf_tpu/ops/pallas/field_kernels.py counterpart).
                                        program (K3's kernel, its own entry)
 
 The CUDA sources are ``zerocaf_tpu_torch/csrc/field_kernels.cu`` with
-``field.cuh`` (K1, K6) and ``field32.cuh`` with ``pow32.cuh`` (K2) and
-``ladder32.cuh`` (K3, K4, K10) and K5.  Each wrapper checks its tensors
-(int32, limb axis 22, contiguous, one device) and raises on anything else.
-For CUDA tensors it launches its kernel, or raises if the kernel library
-cannot be built or the launch fails; for CPU tensors it runs the plain
-version beside it.  ``<wrapper>.launches`` counts kernel launches and
-nothing else.
+the 8 x 32-bit core ``field32.cuh`` and the per-lane bodies ``pow32.cuh``
+(K2), ``ladder32.cuh`` (K3, K4, K10) and ``comb32.cuh`` (K6).  Each wrapper
+checks its tensors (int32, limb axis 22, contiguous, one device) and
+raises on anything else.  For CUDA tensors it launches its kernel, or
+raises if the kernel library cannot be built or the launch fails; for CPU
+tensors it runs the plain version beside it.  ``<wrapper>.launches``
+counts kernel launches and nothing else.
 
-The plain versions use the kernels' algorithm and the limb algebra of
-``field.cuh`` -- the same schoolbook columns, the two-pass keep-top carries,
-the cascade folds and the single carry passes (``_c1``) at the same places.
-K1 and K6 compute in that algebra on the card too and agree with their
-plain versions limb for limb.  K2, K3, K4, K5 and K10 compute on the 8 x
-32-bit Montgomery core of ``field32.cuh`` (K2 modulo p or r) with the same
-formulas and chains, so they give the same field values and write them as
-canonical limbs: they agree with their plain versions after
-``limb.canonical``.
+The plain versions use the JAX package's limb algebra (``ops/limb.py``):
+schoolbook columns, two-pass keep-top carries, cascade folds and single
+carry passes (``_c1``) at the same places as its block helpers.  The
+kernels compute on the 8 x 32-bit Montgomery core of ``field32.cuh`` (K1
+and K2 modulo p or r) with the same formulas and chains, so they give the
+same field values and write them as canonical limbs: they agree with their
+plain versions after ``limb.canonical``.
 
 Constant time: the ladders read every table entry and select by mask.
 Power chains: the access pattern depends only on the public exponent (K2
@@ -104,7 +102,7 @@ def _launch(name: str, device: torch.device, fn_name: str, *args) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Plain block algebra (mirrors csrc/field.cuh)
+# Plain block algebra (the JAX package's block helpers)
 # ---------------------------------------------------------------------------
 
 
@@ -225,6 +223,39 @@ def _flat(t: torch.Tensor) -> int:
 
 
 # ---------------------------------------------------------------------------
+# The 8 x 32-bit core's form of a field element (csrc/field32.cuh)
+# ---------------------------------------------------------------------------
+
+NW32 = 8                                 # 32-bit words of an element
+_R_MOD_P = limb.int_limbs(C.FIELD32_R % C.P)
+
+
+def limbs_to_words(x):
+    """Canonical [..., 22] limbs -> [..., 8] little-endian 32-bit words
+    (uint32 bits in int32)."""
+    x = x.long()
+    words = []
+    for i in range(NW32):
+        acc = torch.zeros_like(x[..., 0])
+        for k in range(L):
+            sh = limb.W * k - 32 * i
+            if -limb.W < sh < 32:
+                acc = acc | (x[..., k] << sh if sh >= 0 else x[..., k] >> -sh)
+        words.append(acc & 0xFFFFFFFF)
+    w = torch.stack(words, dim=-1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def core_words(x):
+    """[..., 22] limbs (any values the limb engine makes) -> [..., 8] int32
+    holding the uint32 words of v R mod p (R = 2^256), the core's
+    Montgomery form, by the plain multiply (no kernel launches)."""
+    v = limb.canonical(x, FIELD)
+    mont = _mulb(v, limb.const(_R_MOD_P, x.device))
+    return limbs_to_words(limb.canonical(mont, FIELD))
+
+
+# ---------------------------------------------------------------------------
 # K1: field / scalar multiply
 # ---------------------------------------------------------------------------
 
@@ -235,7 +266,9 @@ def mul_tiled_ref(a, b, spec: ModSpec = FIELD):
 
 
 def mul_tiled(a, b, spec: ModSpec = FIELD):
-    """a * b (mod spec.m), semi-reduced [..., 22] in and out (K1)."""
+    """a * b (mod spec.m) (K1): semi-reduced [..., 22] limbs in, at most
+    one add deep and possibly negative; semi limbs out (the kernel writes
+    canonical ones), which callers may add, subtract and multiply again."""
     _check_limbs("mul_tiled", a, b)
     if _on_cpu(a):
         return mul_tiled_ref(a, b, spec)
@@ -472,11 +505,13 @@ padd_tiled.launches = 0
 # K6: fixed-base comb
 # ---------------------------------------------------------------------------
 
-# int32 words of one entry of a device comb table, by layout: "rows" holds
-# the three coordinates' 22 limbs (66 words), "packed" two limbs a word,
-# limb i | limb i+11 << 12 (33 words); both padded so that every entry
-# starts on a 16-byte boundary for the kernel's 16-byte loads.
-COMB_WORDS = {"rows": 68, "packed": 36}
+# int32 words of one entry of a device comb table, by layout.  The plain
+# version reads "rows", the three coordinates' 22 limbs (66 words), or
+# "packed", two limbs a word, limb i | limb i+11 << 12 (33 words), both
+# padded so that every entry starts on a 16-byte boundary.  The kernel
+# reads "core": the three coordinates' 8 words in the core's Montgomery
+# form (96 bytes).
+COMB_WORDS = {"rows": 68, "packed": 36, "core": 3 * NW32}
 _GLUE_LAYOUT = {"rows": "rows", "lanes": "rows", "packed": "packed",
                 "packed2": "packed"}
 MAX_COMB_WIDTH = 16
@@ -489,19 +524,27 @@ def comb_shape(width: int, signed: bool) -> tuple[int, int, int, int]:
     return (-(-250 // width), nent, 3, L)
 
 
-def comb_layout(glue: str = "rows", prefetch: bool = False) -> str:
-    """The device table layout that ``fixed_base_mul_stepped``'s ``glue``
-    and ``prefetch`` arguments select: "packed" for "packed" and "packed2",
-    "rows" for "rows", "lanes" and ``prefetch=True``."""
+def comb_layout(glue: str = "rows", prefetch: bool = False, device=None) -> str:
+    """The device table layout that ``fixed_base_mul_stepped`` reads for
+    its ``glue`` and ``prefetch`` arguments on ``device``: on CUDA the
+    kernel reads "core" for every value; the plain version (``device``
+    None or the CPU) reads "packed" for "packed" and "packed2", "rows" for
+    "rows", "lanes" and ``prefetch=True``."""
     if glue not in _GLUE_LAYOUT:
         raise ValueError(f"fixed_base_mul_stepped: unknown glue {glue!r}")
+    if device is not None and torch.device(device).type == "cuda":
+        return "core"
     return "rows" if prefetch else _GLUE_LAYOUT[glue]
 
 
 def comb_entries(tbl: torch.Tensor, layout: str) -> torch.Tensor:
-    """A comb table [nwin, nent, 3, 22] of canonical limbs -> the kernel's
-    layout [nwin, nent, COMB_WORDS[layout]] on the same device."""
+    """A comb table [nwin, nent, 3, 22] of canonical limbs -> the
+    ``layout``'s table [nwin, nent, COMB_WORDS[layout]] on the same device
+    ("core": converted one window at a time, by the plain multiply)."""
     nwin, nent = tbl.shape[:2]
+    if layout == "core":
+        return torch.stack([core_words(t).reshape(nent, COMB_WORDS["core"])
+                            for t in tbl]).contiguous()
     if layout == "packed":
         words = (tbl[..., :11] | (tbl[..., 11:] << limb.W)).reshape(nwin, nent, 33)
     else:
@@ -557,10 +600,14 @@ def _comb_ref(tbl, windows, width: int, signed: bool, layout: str):
     return Q
 
 
-def _comb_args(windows, width: int, signed: bool, glue: str, prefetch: bool):
-    """Check the comb's arguments; returns (device table, layout)."""
+def _comb_table(width: int, signed: bool, layout: str, device):
     from ...models import edwards as _ed
 
+    return _ed.comb_table(width, signed, layout, device)
+
+
+def _comb_args(windows, width: int, signed: bool, glue: str, prefetch: bool):
+    """Check the comb's arguments; returns the plain version's layout."""
     name = "fixed_base_mul_stepped"
     if not isinstance(windows, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(windows).__name__}")
@@ -574,14 +621,16 @@ def _comb_args(windows, width: int, signed: bool, glue: str, prefetch: bool):
     if windows.shape[-1] != nwin:
         raise ValueError(f"{name}: width {width} takes {nwin} windows, got "
                          f"{windows.shape[-1]}")
-    return _ed.comb_table(width, signed, layout, windows.device), layout
+    return layout
 
 
 def fixed_base_mul_stepped_ref(windows, width: int, signed: bool = False,
                                glue: str = "rows", prefetch: bool = False):
-    """Plain version of K6, on the same device table as the kernel."""
-    tbl, layout = _comb_args(windows, width, signed, glue, prefetch)
-    return _comb_ref(tbl, windows, width, signed, layout)
+    """Plain version of K6, on the 22 x 12 table (rows or packed) that
+    ``glue`` and ``prefetch`` select, on the device of ``windows``."""
+    layout = _comb_args(windows, width, signed, glue, prefetch)
+    return _comb_ref(_comb_table(width, signed, layout, windows.device), windows,
+                     width, signed, layout)
 
 
 def fixed_base_mul_stepped(windows, width: int, signed: bool = False,
@@ -596,25 +645,28 @@ def fixed_base_mul_stepped(windows, width: int, signed: bool = False,
     ``glue`` and ``prefetch`` keep the JAX signature.  Its five variants
     differ only in where XLA's glue gathered and transposed the table
     entries: Mosaic could not gather, so on the TPU that glue ran outside
-    the kernel.  The CUDA kernel gathers in its own body, so each value
-    runs the same hand-written kernel and selects only the table layout
-    it reads (``comb_layout``): "packed" and "packed2" the packed table,
-    "rows", "lanes" and ``prefetch=True`` the int32 rows.
+    the kernel.  The CUDA kernel gathers in its own body, so every value
+    runs the same hand-written kernel on the one table in the core's form
+    ("core"); on the CPU they select the 22 x 12 table that the plain
+    version reads (``comb_layout``): "packed" and "packed2" the packed
+    table, "rows", "lanes" and ``prefetch=True`` the int32 rows.
 
     The entry read is indexed by the (secret) digit: the comb is not
     oblivious at cache-line granularity, as in the reference and the JAX
     package (docs/CONSTANT_TIME.md)."""
-    tbl, layout = _comb_args(windows, width, signed, glue, prefetch)
+    layout = _comb_args(windows, width, signed, glue, prefetch)
     if _on_cpu(windows):
-        return _comb_ref(tbl, windows, width, signed, layout)
+        return _comb_ref(_comb_table(width, signed, layout, windows.device),
+                         windows, width, signed, layout)
+    dev = windows.device
+    tbl = _comb_table(width, signed, comb_layout(glue, prefetch, dev), dev)
     batch = tuple(windows.shape[:-1])
-    out = torch.empty((4,) + batch + (L,), dtype=torch.int32, device=windows.device)
+    out = torch.empty((4,) + batch + (L,), dtype=torch.int32, device=dev)
     nwin = windows.shape[-1]
     n = windows.numel() // nwin
     if n:
-        _launch("fixed_base_mul_stepped", windows.device, "zc_comb", tbl,
-                windows, nwin, width, int(signed), tbl.shape[1],
-                int(layout == "packed"), out, n)
+        _launch("fixed_base_mul_stepped", dev, "zc_comb", tbl, windows, nwin, width,
+                int(signed), tbl.shape[1], out, n)
         fixed_base_mul_stepped.launches += 1
     return tuple(out.unbind(0))
 

@@ -49,11 +49,10 @@ import math
 
 import torch
 
-from ... import constants as C
 from .. import limb as _l
 from . import build
-from .field_kernels import (L, _check_limbs, _on_cpu, _padd_ext_block,
-                            _pdbl_block, identity_like, padd_tiled,
+from .field_kernels import (L, NW32, _check_limbs, _on_cpu, _padd_ext_block,
+                            _pdbl_block, core_words, identity_like, padd_tiled,
                             padd_tiled_ref)
 
 PT = 4 * L                 # int32 of one extended point
@@ -62,7 +61,6 @@ MIN_LANES = 32
 MAX_LANES = 4096
 ACCUM_THREADS_PER_SM = 4 * 128   # k_bucket_accum's __launch_bounds__(128, 4)
 H100_SMS = 132             # the SMs of the card that a CPU tensor stands for
-NW32 = 8                   # words of a field element in the 8 x 32 core
 
 
 def dense_lanes(n: int) -> int:
@@ -172,33 +170,10 @@ def _accum_ref(pts, dig_g, nb: int, lanes: int):
 # ---------------------------------------------------------------------------
 
 
-def _limbs_to_words(x):
-    """Canonical [..., 22] limbs -> [..., 8] little-endian 32-bit words
-    (uint32 bits in int32)."""
-    x = x.long()
-    words = []
-    for i in range(NW32):
-        acc = torch.zeros_like(x[..., 0])
-        for k in range(L):
-            sh = _l.W * k - 32 * i
-            if -_l.W < sh < 32:
-                acc = acc | (x[..., k] << sh if sh >= 0 else x[..., k] >> -sh)
-        words.append(acc & 0xFFFFFFFF)
-    w = torch.stack(words, dim=-1)
-    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
-
-
-def _mont_const(v: int, device):
-    return _l.const(_l.int_limbs(v % C.P), device)
-
-
 def to_field32_ref(pts):
     """Plain version of ``k_to_field32``: [4, n, 22] limbs -> [n, 4, 8]
     words of v R mod p (R = 2^256)."""
-    v = _l.canonical(pts, _l.FIELD)
-    mont = _l.canonical(_l.mul(v, _mont_const(C.FIELD32_R, pts.device),
-                               _l.FIELD), _l.FIELD)
-    return _limbs_to_words(mont).transpose(0, 1).contiguous()
+    return core_words(pts).transpose(0, 1).contiguous()
 
 
 def to_field32(pts):
