@@ -100,7 +100,23 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      equals the oracle's, K8 launched once a rank, with its launches,
      times and peak memory;
  25. msm_with_checkpoints at 2^16 points in 4 blocks, and the same job
-     resumed from its file after block 2, equal to the one-shot MSM.
+     resumed from its file after block 2, equal to the one-shot MSM;
+ 26. surface at 32768 lanes: Scalar (a b b^-1 == a, half, pow by a Scalar,
+     cmp, >>, mods_2_pow_k) and FieldElement (x / y y == x, sqrt_ratio_i,
+     inv_sqrt, legendre_symbol, mod_sqrt, abs, is_positive); the ladders
+     against each other (double_and_add == ltr_bin_mul == mul_windowed ==
+     binary_naf_mul, window_naf_mul == basepoint_mul, mul_by_cofactor ==
+     mul_by_pow_2(3), ProjectivePoint add, double and multiply);
+     CompressedEdwardsY round trip; RistrettoPoint.is_valid (K3 at 253
+     windows) True for k B and False off the subgroup, coset4, double;
+     MontgomeryPoint round trip; each call's time and launches of K1 and
+     K2 (p, r), K3 and K4; K3 at 253 windows against its plain version;
+ 27. pipeline: Engine.dh and Engine.keygen at 32768 over 8 batches through
+     Engine.pipeline at depth 1 and 2, equal to the sequential calls; ops/s
+     sequential, pipelined and of the calls' dispatch alone; the host
+     functions that take most of a sequential sweep (cProfile); the
+     synchronising calls that torch.cuda.set_sync_debug_mode("warn")
+     reports inside the submits.
 Every kernel computes on the 8 x 32-bit core and writes canonical limbs;
 each is held against its plain version's canonical limbs.  K1's launches
 are counted on each main path: ECDH (phases 5-6), Engine.msm (phase 11)
@@ -139,6 +155,8 @@ MSM_NWIN = 42                 # windows at c = 6
 MSM_CHECK = 1 << 12           # K9, K11 and K12 checked at 2^12 points first
 FOLD_CHECKED = 2              # lane rounds folded after K7 / K9 in the checks
 CKPT_BATCH = 1 << 16          # msm_with_checkpoints: 4 blocks of 2^14
+SURFACE_SAMPLE = 64           # lanes of the surface phase held against the oracle
+PIPE_BATCHES = 8              # batches a pipeline sweep serves
 SEED = 20261016
 ECDH_KERNELS = ("mul_tiled", "pow_tiled", "scalar_mul_windowed_stepped",
                 "scalar_mul_windowed_signed")
@@ -772,6 +790,10 @@ def main() -> None:
     counts.update(msm_option_phases(dev, roof, card, msm_ctx, record))
     counts.update(sharded_phases(dev, card, msm_ctx))
     checkpoint_phase(dev, msm_ctx)
+    t_new = time.perf_counter()
+    surface_phases(dev, card, record)
+    pipeline_phases(dev, card, pk_b)
+    phase("surface and pipeline", f"{time.perf_counter() - t_new:.1f} s")
 
     replaces = {"mul_tiled": (SOURCE, TPU_KERNELS, 1133),
                 "pow_tiled": (SOURCE, TPU_KERNELS, 1030),
@@ -1581,6 +1603,285 @@ def checkpoint_phase(dev, ctx) -> None:
     phase("checkpoint", f"{n} points in 4 blocks: the checkpointed sum, and the "
           f"job resumed from its file after block {stopped_at}, equal the "
           f"one-shot MSM and the oracle")
+
+
+def surface_counts() -> dict[str, int]:
+    """K1 and K2 by modulus, K3 and K4: the kernels the surface reaches."""
+    from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
+
+    return {"K1 p": fk.mul_tiled.by_modulus["field"],
+            "K1 r": fk.mul_tiled.by_modulus["scalar"],
+            "K2 p": fk.pow_tiled.by_modulus["field"],
+            "K2 r": fk.pow_tiled.by_modulus["scalar"],
+            "K3": fk.scalar_mul_windowed_stepped.launches,
+            "K4": fk.scalar_mul_windowed_signed.launches}
+
+
+def surface_phases(dev, card, record) -> None:
+    """Phase 26: the library surface at 32768 lanes, inputs from the seed.
+    Each call is timed once after a warm-up on 256 of its lanes (host clock,
+    ended by a synchronize) with its launches of K1 (p, r), K2 (p, r), K3
+    and K4.  Every check is on every lane, except those against the oracle,
+    which take SURFACE_SAMPLE sampled lanes; K3 at 253 windows is held
+    against its plain version's canonical limbs on 256 lanes."""
+    import zerocaf_tpu_torch as zt
+    from zerocaf_tpu_torch import oracle as o
+    from zerocaf_tpu_torch.ops import limb
+    from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
+
+    n = BATCH
+    rng = np.random.default_rng(SEED + 26)
+    lanes = rng.choice(n, SURFACE_SAMPLE, replace=False)
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    t_phase = time.perf_counter()
+
+    def run(label, fn, *args):
+        """fn(*args) once on the first 256 lanes of every batched argument
+        (at full width where one cannot be sliced), then timed at full
+        width; its launches printed."""
+        batched = [getattr(a, "shape", ())[:1] == (n,) for a in args]
+        if all(hasattr(a, "__getitem__") for a, b in zip(args, batched) if b):
+            fn(*(a[:256] if b else a for a, b in zip(args, batched)))
+        else:
+            fn(*args)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        phase("surface", f"{label}: {ms:.1f} ms, launches {json.dumps(surface_counts())}")
+        return out
+
+    def every(mask, what):
+        if not bool(mask.all()):
+            raise AssertionError(f"surface: {what} fails on "
+                                 f"{int((~mask).sum())} of {mask.numel()} lanes")
+
+    def sampled(got, want, what):
+        if got != want:
+            raise AssertionError(f"surface: {what} differs from the oracle")
+
+    def ints(v, sel=lanes):
+        return [int(x) for x in np.asarray(v[sel].to_ints(), dtype=object).ravel()]
+
+    # -- scalars mod r: K1 and K2 on r, pow_batched over 250 bits
+    a = zt.Scalar.random(g, (n,), dev)
+    b = zt.Scalar.random(g, (n,), dev)
+    ab = run("Scalar a * b", lambda x, y: x * y, a, b)
+    binv = run("Scalar inverse", lambda x: x.inverse(), b)
+    every((ab * binv).eq(a), "(a * b) * b^-1 == a")
+    h = run("Scalar half", lambda x: x.half(), a)
+    every((h + h).eq(a), "half(a) * 2 == a")
+    ap = run("Scalar pow(Scalar)", lambda x, y: x.pow(y), a, b)
+    ai, bi = ints(a), ints(b)
+    sampled(ints(ap), [pow(x, y, o.R) for x, y in zip(ai, bi)], "Scalar.pow")
+    sampled(a.cmp(b)[lanes].tolist(), [(x > y) - (x < y) for x, y in zip(ai, bi)],
+            "Scalar.cmp")
+    sampled(ints(a >> 77), [x >> 77 for x in ai], "Scalar >> 77")
+    sampled(a.mods_2_pow_k(5)[lanes].tolist(),
+            [x % 32 - (32 if x % 32 >= 16 else 0) for x in ai], "mods_2_pow_k(5)")
+
+    # -- field elements mod p: K1 and K2 on p
+    x = zt.FieldElement.random(g, (n,), dev)
+    y = zt.FieldElement.random(g, (n,), dev)
+    q = run("FieldElement x / y", lambda u, v: u / v, x, y)
+    every((q * y).eq(x), "x / y * y == x")
+    ok_r, r = run("FieldElement sqrt_ratio_i", lambda u, v: u.sqrt_ratio_i(v), x, y)
+    ok_i, ri = run("FieldElement inv_sqrt", lambda u: u.inv_sqrt(), x)
+    qr = run("FieldElement legendre_symbol", lambda u: u.legendre_symbol(), x)
+    xx = x.square()
+    ok_s, rs = run("FieldElement mod_sqrt", lambda u: u.mod_sqrt(0), xx)
+    xi, yi, xxi = ints(x), ints(y), ints(xx)
+    sampled(list(zip(ok_r[lanes].tolist(), ints(r))),
+            [o.sqrt_ratio_i(u, v) for u, v in zip(xi, yi)], "sqrt_ratio_i")
+    sampled(list(zip(ok_i[lanes].tolist(), ints(ri))), [o.inv_sqrt(u) for u in xi],
+            "inv_sqrt")
+    sampled(qr[lanes].tolist(), [o.legendre_symbol(u) == 1 for u in xi],
+            "legendre_symbol")
+    every(ok_s, "mod_sqrt of a square exists")
+    sampled(ints(rs), [o.mod_sqrt(u, 0) for u in xxi], "mod_sqrt")
+    sampled(ints(x.abs()), [o.fabs(u) for u in xi], "abs")
+    sampled(x.is_positive()[lanes].tolist(), [o.is_positive(u) for u in xi],
+            "is_positive")
+
+    # -- the ladders against each other on every lane
+    P = zt.RistrettoPoint.random(g, (n,), dev).point
+    Q = zt.RistrettoPoint.random(g, (n,), dev).point
+    s = zt.Scalar.random(g, (n,), dev)
+    da = run("double_and_add (K3)", zt.double_and_add, P, s)
+    lb = run("ltr_bin_mul (K3)", zt.ltr_bin_mul, P, s)
+    mw = run("mul_windowed (K4)", lambda p, k: p.mul_windowed(k), P, s)
+    every(da.eq(lb) & da.eq(mw), "double_and_add == ltr_bin_mul == mul_windowed")
+    nf = run("binary_naf_mul", zt.binary_naf_mul, P, s)
+    every(nf.eq(da), "binary_naf_mul == double_and_add")
+    wn = run("window_naf_mul (width 5)", lambda k: zt.window_naf_mul(k, 5), s)
+    every(wn.eq(zt.EdwardsPoint.basepoint_mul(s)), "window_naf_mul == basepoint_mul")
+    every(zt.mul_by_cofactor(P).eq(zt.mul_by_pow_2(P, 3))
+          & P.mul_by_cofactor().eq(P.mul_by_pow_2(3)),
+          "mul_by_cofactor == mul_by_pow_2(3)")
+    pp, qq = P.to_projective(), Q.to_projective()
+    every((pp + qq).to_extended().eq(P + Q) & pp.double().to_extended().eq(P.double()),
+          "ProjectivePoint add and double == extended")
+    pm = run("ProjectivePoint * Scalar (K3)", lambda p, k: p * k, pp, s)
+    every(pm.to_extended().eq(da), "ProjectivePoint * s == extended")
+
+    # -- compressed y
+    cy = run("EdwardsPoint.compress", lambda p: p.compress(), P)
+    back, ok_d = run("CompressedEdwardsY.decompress",
+                     lambda b: zt.CompressedEdwardsY(b).decompress(), cy)
+    every(ok_d & back.eq(P), "CompressedEdwardsY round trip")
+    cyn = cy.cpu().numpy()
+    Pi = list(zip(*P[lanes].to_ints()))
+    sampled([cyn[i].tobytes() for i in lanes], [o.edwards_compress(p) for p in Pi],
+            "edwards_compress")
+
+    # -- Ristretto: order check (K3 at 253 windows), cosets, double
+    V = zt.RistrettoPoint(run("EdwardsPoint.random (K3)", zt.EdwardsPoint.random, g,
+                              (n,), dev))
+    valid = run("RistrettoPoint.is_valid (K3, 253 windows)", lambda v: v.is_valid(), V)
+    every(valid, "is_valid of k B")
+    cos = V.coset4()
+    every(~zt.RistrettoPoint(cos[2]).is_valid(), "is_valid of k B + a 4-torsion point "
+          "is False")
+    R = zt.RistrettoPoint(P)
+    rv = R.is_valid()
+    sampled(rv[lanes].tolist(), [o.ristretto_is_valid(p) for p in Pi],
+            "is_valid of Elligator points")
+    wires = [zt.RistrettoPoint(c).compress() for c in R.coset4()]
+    every((wires[0] == wires[2]).all(-1) & (wires[0] == wires[3]).all(-1),
+          "coset4's representatives 0, 2, 3 encode alike")
+    sampled([wires[1][i].cpu().numpy().tobytes() for i in lanes],
+            [o.ristretto_compress(o.coset4(p)[1]) for p in Pi], "coset4's second")
+    every(R.double().eq(R + R), "double == P + P")
+
+    # -- Montgomery round trip: the x sign is compress's sign bit
+    m = run("MontgomeryPoint.from_edwards", zt.MontgomeryPoint.from_edwards, P)
+    sign = (cy[..., 31] >> 7).to(torch.int32)
+    mp, ok_m = run("MontgomeryPoint.to_edwards",
+                   lambda b, sg: zt.MontgomeryPoint(b).to_edwards(sg), m.bytes, sign)
+    every(ok_m & mp.eq(P), "MontgomeryPoint round trip")
+    sampled(ints(m.u()), [o.edwards_to_montgomery_u(p) for p in Pi], "Montgomery u")
+
+    # -- K3 at 253 windows against its plain version
+    pt = tuple(c[:256].contiguous() for c in P._tuple())
+    bits = torch.tensor([(o.R >> i) & 1 for i in range(253)], dtype=torch.int32,
+                        device=dev).expand(256, 253).contiguous()
+    err = max_abs_err(fk.scalar_mul_windowed_stepped(pt, bits, 1),
+                      canonical(fk.scalar_mul_windowed_stepped_ref(pt, bits, 1)))
+    phase("surface", f"K3 at 253 windows (r P), 256 lanes: max_abs_err {err} "
+          f"(tolerance {TOLERANCE}, canonical limbs)")
+    if err > TOLERANCE:
+        raise AssertionError("K3 at 253 windows differs from its plain version")
+    record(fk.scalar_mul_windowed_stepped, err, max_abs_err_253_windows=err)
+    phase("surface", f"{card}: batch {n}, every check on every lane, "
+          f"{SURFACE_SAMPLE} sampled lanes equal the oracle; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def pipeline_phases(dev, card, peer) -> None:
+    """Phase 27: Engine.dh and Engine.keygen at 32768 lanes over
+    PIPE_BATCHES batches, sequential and through Engine.pipeline at depth
+    1 and 2 (its own stream, pinned buffers; one pipeline a depth, kept
+    for every sweep): every result equals the sequential call's bytes, in
+    order.  ops/s as the median of 3 sweeps, each on the host clock
+    (sequential calls read their results back to the host, as the
+    pipeline does), and of the calls alone on inputs already on the card
+    with no readback ("dispatch only": the host's work of dispatching
+    them);
+    the functions that take most of a sequential sweep's host time under
+    cProfile (which inflates Python-heavy ones).  Then one sweep of
+    submits under torch.cuda.set_sync_debug_mode("warn"), counting the
+    synchronising calls it reports (its one-time prototype notice left
+    out)."""
+    import cProfile
+    import pstats
+    import warnings
+
+    import zerocaf_tpu_torch as zt
+
+    t_phase = time.perf_counter()
+    n = BATCH
+    rng = np.random.default_rng(SEED + 27)
+    eng = zt.Engine(batch=n, device=dev)
+    sks = [rng.integers(0, 256, (n, 32), dtype=np.uint8) for _ in range(PIPE_BATCHES)]
+    seeds = [rng.integers(0, 256, (n, 64), dtype=np.uint8) for _ in range(PIPE_BATCHES)]
+    peers = [torch.roll(peer, i, 0).cpu().numpy() for i in range(PIPE_BATCHES)]
+    work = {"dh": [(sk, pw) for sk, pw in zip(sks, peers)],
+            "keygen": [(sd,) for sd in seeds]}
+
+    def sequential(op):
+        fn = getattr(eng, op)
+        return [tuple(t.cpu().numpy() for t in fn(*args)) for args in work[op]]
+
+    for op in work:
+        # one long-lived pipeline a depth, as a server keeps one: its
+        # stream's memory pool and its pinned slots are warm after a sweep
+        pipes = {depth: eng.pipeline(op, depth) for depth in (1, 2)}
+
+        def piped(op, depth):
+            return list(pipes[depth].map(work[op]))
+
+        want = sequential(op)
+        for depth in (1, 2):
+            got = piped(op, depth)
+            if len(got) != len(want) or not all(
+                    all(np.array_equal(a, b) for a, b in zip(g, w))
+                    for g, w in zip(got, want)):
+                raise AssertionError(f"pipeline {op} depth {depth} differs from "
+                                     "the sequential calls")
+        on_card = [tuple(torch.as_tensor(a).to(dev) for a in args) for args in work[op]]
+
+        def dispatch_only(op):
+            fn = getattr(eng, op)
+            for args in on_card:
+                fn(*args)
+
+        rates = {}
+        for label, fn in (("sequential", lambda: sequential(op)),
+                          ("depth 1", lambda: piped(op, 1)),
+                          ("depth 2", lambda: piped(op, 2)),
+                          ("dispatch only", lambda: dispatch_only(op))):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            rates[label] = n * PIPE_BATCHES / sorted(times)[1]
+        phase("pipeline", f"{card}: {op} at batch {n}, {PIPE_BATCHES} batches: "
+              f"equal to the sequential calls at depth 1 and 2; ops/s (median of 3 "
+              f"sweeps) " + ", ".join(f"{k} {v:.0f}" for k, v in rates.items()))
+        prof = cProfile.Profile()
+        prof.enable()
+        sequential(op)
+        prof.disable()
+        stats = pstats.Stats(prof)
+        top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:3]
+        phase("pipeline", f"{op}: host time of a sequential sweep under cProfile "
+              f"{stats.total_tt:.3f} s; most of it in " + ", ".join(
+                  f"{name} ({file.split('zerocaf_tpu_torch/')[-1]}:{line}) "
+                  f"{tt / stats.total_tt:.0%}"
+                  for (file, line, name), (_, _, tt, _, _) in top))
+        pipe = pipes[2]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for args in work[op]:
+                    pipe.submit(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        pipe.drain()
+        caught = [w for w in caught if not str(w.message).startswith(
+            "Synchronization debug mode is a prototype feature")]    # a notice
+        sites = {}
+        for w in caught:
+            key = str(w.message).splitlines()[0][:120]
+            sites[key] = sites.get(key, 0) + 1
+        phase("pipeline", f"{op}: {len(caught)} synchronising calls in "
+              f"{PIPE_BATCHES} submits at depth 2" + "".join(
+                  f"; {c}x {k}" for k, c in sorted(sites.items(), key=lambda kv: -kv[1])))
+    phase("pipeline", f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def profile_call(label: str, what: str, fn) -> None:

@@ -41,6 +41,9 @@ def test_oracle_is_the_jax_package_file():
     assert not hasattr(to, "PATH")
     assert (to.P, to.R, to.EDWARDS_D, to.BASEPOINT) == (jo.P, jo.R, jo.EDWARDS_D,
                                                        jo.BASEPOINT)
+    for name in ("INV_SQRT_A", "INVERSE_MOD_TWO", "MINUS_ONE_HALF",
+                 "SCALAR_INVERSE_MOD_TWO", "MONT_A", "MONT_B", "FOUR_COSET_GROUP"):
+        assert getattr(to, name) == getattr(jo, name), name
     assert tc.CHAIN_EXPONENTS == (jc.EXP_INV, jc.EXP_LEGENDRE, jc.EXP_SQRT,
                                   jc.EXP_SQRT_RATIO)
     rng = np.random.default_rng(7)
@@ -52,6 +55,19 @@ def test_oracle_is_the_jax_package_file():
         assert to.ristretto_compress(p) == jo.ristretto_compress(p)
         assert to.point_to_affine(p) == jo.point_to_affine(p)
         assert to.mul_by_pow_2(p, 14) == jo.mul_by_pow_2(p, 14)
+        pt = to.point_add(p, to.FOUR_COSET_GROUP[1])
+        for q in (p, pt):
+            assert to.edwards_compress(q) == jo.edwards_compress(q)
+            assert to.edwards_decompress(to.edwards_compress(q)) == \
+                jo.edwards_decompress(jo.edwards_compress(q))
+            assert to.point_is_valid(q) == jo.point_is_valid(q)
+            assert to.ristretto_is_valid(q) == jo.ristretto_is_valid(q)
+            assert to.coset4(q) == jo.coset4(q)
+            assert to.edwards_to_montgomery_u(q) == jo.edwards_to_montgomery_u(q)
+        u = to.edwards_to_montgomery_u(p)
+        assert to.montgomery_u_to_edwards_y(u) == jo.montgomery_u_to_edwards_y(u)
+    raw = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
+    assert to.edwards_decompress(raw) == jo.edwards_decompress(raw)
 
 
 def test_import_leaves_jax_out():
@@ -59,7 +75,9 @@ def test_import_leaves_jax_out():
             "zerocaf_tpu_torch.oracle, zerocaf_tpu_torch.parallel.msm, "
             "zerocaf_tpu_torch.parallel.mesh, zerocaf_tpu_torch.parallel.comm, "
             "zerocaf_tpu_torch.parallel.checkpoint, "
-            "zerocaf_tpu_torch.serving, zerocaf_tpu_torch.models.edwards; "
+            "zerocaf_tpu_torch.serving, zerocaf_tpu_torch.models.edwards, "
+            "zerocaf_tpu_torch.models.montgomery, zerocaf_tpu_torch.traits, "
+            "zerocaf_tpu_torch.recode; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'zerocaf_tpu')]; "
             "assert not bad, bad")

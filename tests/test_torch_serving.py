@@ -130,3 +130,99 @@ def test_pad_batch_and_pinned_batch():
     with pytest.raises(ValueError, match="pad_batch"):
         Engine(batch=BATCH, device="cpu").hash_to_group(
             torch.zeros((3, 64), dtype=torch.uint8))
+
+
+# --- Engine.pipeline and Engine.compiled (tests/test_serving.py's contract) ----
+
+def test_pipeline_overlap_correctness():
+    """Results come back in submission order, byte-equal to sequential
+    calls, with never more than ``depth`` calls in flight and None while
+    the pipeline fills."""
+    rng = np.random.default_rng(53)
+    eng = Engine(batch=2, device="cpu")
+    inputs = [rng.integers(0, 256, (2, 64), dtype=np.uint8) for _ in range(5)]
+    seq = [eng.hash_to_group(b).numpy() for b in inputs]
+    pipe = eng.pipeline("hash_to_group", depth=2)
+    got = []
+    for i, b in enumerate(inputs):
+        done = pipe.submit(b)
+        assert len(pipe) <= 2
+        assert (done is None) == (i < 2)
+        if done is not None:
+            got.append(done)
+    got.extend(pipe.drain())
+    assert len(pipe) == 0 and len(got) == 5
+    for a, b in zip(got, seq):
+        assert isinstance(a, np.ndarray) and np.array_equal(a, b)
+
+
+def test_pipeline_map_and_validation(monkeypatch):
+    monkeypatch.setattr(ted, "COMB_WIDTH_SIGNED", 8)
+    rng = np.random.default_rng(54)
+    eng = Engine(batch=2, device="cpu")
+    with pytest.raises(ValueError):
+        eng.pipeline("keygen", depth=0)
+    pipe = eng.pipeline("keygen", depth=2)
+    with pytest.raises(RuntimeError):
+        pipe.collect()                                      # nothing submitted
+    ins = [rng.integers(0, 256, (2, 64), dtype=np.uint8) for _ in range(3)]
+    seq = [tuple(x.numpy() for x in eng.keygen(b)) for b in ins]
+    outs = list(pipe.map((b,) for b in ins))
+    assert len(outs) == 3
+    for (sk_a, pk_a), (sk_b, pk_b) in zip(outs, seq):
+        assert np.array_equal(sk_a, sk_b) and np.array_equal(pk_a, pk_b)
+
+
+def test_compiled_names_the_served_calls(flow):
+    """Engine.compiled() lists, sorted, the JAX package's names of the calls
+    served; a second MSM call on the same route adds none."""
+    n = 4
+    eng = Engine(batch=n, device="cpu")
+    assert eng.compiled() == []
+    eng.hash_to_group(torch.tensor(flow["uniform"][:n]))
+    sc = np.random.default_rng(55).integers(0, 256, (n, 32), dtype=np.uint8)
+    sc[:, 31] &= 0x03
+    pk = flow["pk_b"][:n]
+    wire, ok = eng.msm(pk, sc, c=4, dense=False)
+    assert bool(ok)
+    names = set(eng.compiled())
+    assert names == {"hash_to_group", "msm_decode_c4", "msm_encode_c4"}
+    wire2, _ = eng.msm(pk.copy(), sc.copy(), c=4, dense=False)
+    assert set(eng.compiled()) == names and torch.equal(wire, wire2)
+    wire3, _ = eng.msm(pk, sc, c=4)                          # the dense route
+    assert eng.compiled() == sorted(names | {"msm_dense_c4"})
+    assert torch.equal(wire, wire3)
+    acc = o.IDENTITY
+    for i in range(n):
+        s_i = int.from_bytes(sc[i].tobytes(), "little") % o.R
+        acc = o.point_add(acc, o.scalar_mul(o.BASEPOINT, flow["kb"][i] * s_i % o.R))
+    assert wire.numpy().tobytes() == o.ristretto_compress(acc)
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+def test_pipeline_on_the_card_equals_sequential_calls(cuda, flow, depth):
+    """On a CUDA engine the pipeline runs on its own stream from pinned
+    buffers and returns the sequential calls' bytes, in order, for host
+    arrays and for tensors already on the card."""
+    n = 256
+    rng = np.random.default_rng(56)
+    eng = Engine(batch=n, device=cuda)
+    sks = [rng.integers(0, 256, (n, 32), dtype=np.uint8) for _ in range(4)]
+    seeds = [rng.integers(0, 256, (n, 64), dtype=np.uint8) for _ in range(4)]
+    peer = np.tile(flow["pk_b"], (n // BATCH, 1))
+    seq_dh = [tuple(x.cpu().numpy() for x in eng.dh(s, peer)) for s in sks]
+    seq_kg = [tuple(x.cpu().numpy() for x in eng.keygen(s)) for s in seeds]
+    pipe = eng.pipeline("dh", depth)
+    assert pipe._stream is not None and pipe._stream != torch.cuda.current_stream(cuda)
+    got = list(pipe.map((s, torch.as_tensor(peer).to(cuda)) for s in sks))
+    kg = list(eng.pipeline("keygen", depth).map((s,) for s in seeds))
+    for (a, b), (c, d) in zip(got + kg, seq_dh + seq_kg):
+        assert np.array_equal(a, c) and np.array_equal(b, d)

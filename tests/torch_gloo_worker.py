@@ -8,7 +8,8 @@ takes this rank's block of the global points and scalars in SPEC (limbs
 as nested lists), runs ``msm_sharded`` for each configuration in SPEC, and
 writes the canonical encodings (hex) with the results of a few
 collectives and error checks to OUT.  Runs on one CPU thread, so that
-several ranks share a small machine.
+several ranks share a small machine, with the port's default device set to
+the CPU.
 """
 
 from __future__ import annotations
@@ -23,13 +24,14 @@ def main(rank: int, world: int, port: int, spec_path: str, out_path: str) -> Non
     torch.set_num_threads(1)
     import torch.distributed as dist
 
-    from zerocaf_tpu_torch import EdwardsPoint, Scalar
+    from zerocaf_tpu_torch import EdwardsPoint, Scalar, config
     from zerocaf_tpu_torch.config import MeshConfig
     from zerocaf_tpu_torch.models import ristretto as ri
     from zerocaf_tpu_torch.parallel import (Communicator, batch_sharding,
                                             initialize_distributed, make_mesh,
                                             msm_sharded)
 
+    config.set_default_device("cpu")
     with open(spec_path) as f:
         spec = json.load(f)
     initialize_distributed(f"localhost:{port}", world, rank, backend="gloo")

@@ -9,11 +9,22 @@ hand-written CUDA kernels and their plain PyTorch versions both rely on.
 
 There is no ``use_pallas`` switch: a kernel wrapper launches its CUDA kernel
 for a CUDA tensor and runs its plain version for a CPU tensor.
+
+The default device: every public constructor of the port (``from_int``,
+``zero``, ``random``, ``identity``, ``basepoint`` and the others) places its
+tensors on ``default_device()`` when the caller names no device.  That is
+the first CUDA card, and asking for it raises where there is none: nothing
+falls back to the CPU by itself.  ``set_default_device("cpu")`` or, for a
+block, ``with use_device("cpu"):`` asks for the CPU, where the kernels'
+plain versions run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+
+import torch
 
 RADIX_BITS: int = 12
 LIMB_MASK: int = (1 << RADIX_BITS) - 1
@@ -30,3 +41,45 @@ class MeshConfig:
 
     data_axis: str = "data"
     n_devices: int | None = None
+
+
+_DEFAULT_DEVICE: torch.device | None = None
+
+
+def default_device() -> torch.device:
+    """The device that constructors use when given none: the one set by
+    ``set_default_device`` or ``use_device``, else the first CUDA card.
+    Raises where no device was set and there is no CUDA card."""
+    if _DEFAULT_DEVICE is not None:
+        return _DEFAULT_DEVICE
+    if not torch.cuda.is_available():
+        raise RuntimeError("zerocaf_tpu_torch places tensors on the first CUDA "
+                           "card by default and none is available; pass "
+                           "device='cpu', or call "
+                           "zerocaf_tpu_torch.config.set_default_device('cpu') "
+                           "(or use `with use_device('cpu'):`) to run on the CPU")
+    return torch.device("cuda", 0)
+
+
+def set_default_device(device) -> None:
+    """Set the device that constructors use when given none; None restores
+    the first CUDA card."""
+    global _DEFAULT_DEVICE
+    _DEFAULT_DEVICE = None if device is None else torch.device(device)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device, or ``default_device()`` for None."""
+    return default_device() if device is None else torch.device(device)
+
+
+@contextlib.contextmanager
+def use_device(device):
+    """Within the block, constructors given no device use ``device``."""
+    global _DEFAULT_DEVICE
+    saved = _DEFAULT_DEVICE
+    set_default_device(device)
+    try:
+        yield
+    finally:
+        _DEFAULT_DEVICE = saved

@@ -30,6 +30,12 @@ SQRT_AD_MINUS_ONE = oracle.SQRT_AD_MINUS_ONE
 ONE_MINUS_D_SQ = oracle.ONE_MINUS_D_SQ
 D_MINUS_ONE_SQ = oracle.D_MINUS_ONE_SQ
 POS_RANGE = oracle.POS_RANGE
+INV_SQRT_A = oracle.INV_SQRT_A
+INVERSE_MOD_TWO = oracle.INVERSE_MOD_TWO              # 1/2 (mod p)
+SCALAR_INVERSE_MOD_TWO = oracle.SCALAR_INVERSE_MOD_TWO  # 1/2 (mod r)
+MINUS_ONE_HALF = oracle.MINUS_ONE_HALF
+MONT_A = oracle.MONT_A              # Montgomery-form A = 505186
+MONT_B = oracle.MONT_B
 
 # Fixed exponents of the branch-free chains (ops/inv_sqrt.py).
 EXP_INV = P - 2                     # Fermat inverse
@@ -37,6 +43,7 @@ EXP_LEGENDRE = (P - 1) // 2
 EXP_SQRT = (P + 3) // 8             # p == 5 (mod 8) closed-form sqrt
 EXP_SQRT_RATIO = (P - 5) // 8       # dalek sqrt_ratio exponent
 CHAIN_EXPONENTS = (EXP_INV, EXP_LEGENDRE, EXP_SQRT, EXP_SQRT_RATIO)
+EXP_SINV = R - 2                    # scalar inverse (mod r)
 
 
 def _limbs(v: int, n: int = NUM_LIMBS) -> np.ndarray:
@@ -78,15 +85,32 @@ def point_limbs(p) -> np.ndarray:
 
 BASEPOINT = point_limbs(oracle.BASEPOINT)
 IDENTITY = point_limbs(oracle.IDENTITY)
+FOUR_COSET_GROUP = np.stack([point_limbs(p) for p in oracle.FOUR_COSET_GROUP])
 
-# Limb-array constants that interop.check_constants compares with the JAX
+# TABLE[i] = i * BASEPOINT for i < 126: window_naf_mul's fixed-base table.
+_table_pts = [oracle.IDENTITY]
+for _ in range(125):
+    _table_pts.append(oracle.point_add(_table_pts[-1], oracle.BASEPOINT))
+BASEPOINT_MULTIPLES_TABLE = np.stack([point_limbs(p) for p in _table_pts])  # [126, 4, 22]
+del _table_pts
+
+# Compressed basepoint encodings (uint8 [32]).
+BASEPOINT_COMPRESSED = np.frombuffer(
+    oracle.edwards_compress(oracle.BASEPOINT), dtype=np.uint8).copy()
+RISTRETTO_BASEPOINT_COMPRESSED = np.frombuffer(
+    oracle.ristretto_compress(oracle.BASEPOINT), dtype=np.uint8).copy()
+
+# Array constants that interop.check_constants compares with the JAX
 # package's same-named arrays.
 LIMB_CONSTANT_NAMES = (
     "P_LIMBS", "R_LIMBS", "FOLD_C_P_LIMBS", "FOLD_C_R_LIMBS", "DELTA_R_LIMBS",
     "EDWARDS_D_LIMBS", "EDWARDS_2D_LIMBS",
     "SQRT_M1_LIMBS", "C6_LIMBS", "INV_SQRT_A_MINUS_D_LIMBS",
     "SQRT_AD_MINUS_ONE_LIMBS", "ONE_MINUS_D_SQ_LIMBS", "D_MINUS_ONE_SQ_LIMBS",
-    "BASEPOINT", "IDENTITY",
+    "BASEPOINT", "IDENTITY", "FOUR_COSET_GROUP", "BASEPOINT_MULTIPLES_TABLE",
+    "BASEPOINT_COMPRESSED", "RISTRETTO_BASEPOINT_COMPRESSED",
 )
-INT_CONSTANT_NAMES = ("P", "R", "EDWARDS_D", "SQRT_M1", "C6", "EXP_INV",
-                      "EXP_LEGENDRE", "EXP_SQRT", "EXP_SQRT_RATIO")
+INT_CONSTANT_NAMES = ("P", "R", "EDWARDS_D", "SQRT_M1", "C6", "INV_SQRT_A",
+                      "INVERSE_MOD_TWO", "SCALAR_INVERSE_MOD_TWO",
+                      "MINUS_ONE_HALF", "MONT_A", "MONT_B", "EXP_INV",
+                      "EXP_LEGENDRE", "EXP_SQRT", "EXP_SQRT_RATIO", "EXP_SINV")

@@ -1,6 +1,8 @@
-"""State carried between the JAX package and the port: limbs and points as
-numpy arrays in the shared layout (int32, radix 2^12, limb axis last), and a
-check that both packages hold the same constants."""
+"""State carried between the JAX package and the port: limbs, points
+(extended, projective or affine coordinates) and 32-byte encodings as numpy
+arrays in the shared layout (int32, radix 2^12, limb axis last; uint8
+bytes), and a check that both packages hold the same constants.  A device
+of None is the port's default device (``config.default_device``)."""
 
 from __future__ import annotations
 
@@ -8,7 +10,7 @@ import numpy as np
 import torch
 
 from . import constants as C
-from .config import LIMB_MASK, NUM_LIMBS
+from .config import LIMB_MASK, NUM_LIMBS, resolve_device
 from .ops.kernels import field_kernels as _fk
 
 
@@ -18,23 +20,34 @@ def limbs_from_numpy(arr, device=None) -> torch.Tensor:
     if a.dtype != np.int32 or a.ndim == 0 or a.shape[-1] != NUM_LIMBS:
         raise ValueError(f"expected int32 [..., {NUM_LIMBS}], got "
                          f"{a.dtype} {a.shape}")
-    return torch.tensor(a, device=device)
+    return torch.tensor(a, device=resolve_device(device))
+
+
+def bytes_from_numpy(arr, device=None) -> torch.Tensor:
+    """uint8 [..., 32] numpy encodings (compressed Edwards y, Ristretto
+    wire, Montgomery u) -> tensor on ``device`` (a copy)."""
+    a = np.asarray(arr)
+    if a.dtype != np.uint8 or a.ndim == 0 or a.shape[-1] != 32:
+        raise ValueError(f"expected uint8 [..., 32], got {a.dtype} {a.shape}")
+    return torch.tensor(a, device=resolve_device(device))
 
 
 def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def point_from_numpy(p, device=None) -> tuple[torch.Tensor, ...]:
-    """A 4-tuple of [..., 22] arrays, or one [..., 4, 22] array -> the
-    port's 4-tuple of tensors."""
+def point_from_numpy(p, device=None, ncoords: int = 4) -> tuple[torch.Tensor, ...]:
+    """An ncoords-tuple of [..., 22] arrays, or one [..., ncoords, 22]
+    array -> the port's tuple of tensors: 4 coordinates for an
+    ``EdwardsPoint``, 3 for a ``ProjectivePoint``, 2 for an
+    ``AffinePoint``."""
     if isinstance(p, (tuple, list)):
         coords = [np.asarray(c) for c in p]
     else:
         a = np.asarray(p)
-        coords = [a[..., i, :] for i in range(4)]
-    if len(coords) != 4:
-        raise ValueError(f"expected 4 coordinates, got {len(coords)}")
+        coords = [a[..., i, :] for i in range(a.shape[-2])]
+    if len(coords) != ncoords:
+        raise ValueError(f"expected {ncoords} coordinates, got {len(coords)}")
     return tuple(limbs_from_numpy(np.ascontiguousarray(c), device) for c in coords)
 
 

@@ -1,5 +1,7 @@
 """Batched Edwards points on the Sonny curve (zerocaf_tpu/models/edwards.py
-counterpart, extended coordinates).
+counterpart): extended coordinates, with projective and affine points, the
+compressed-y wire format and the reference's free scalar-multiplication
+functions beside them.
 
 Every point is a batch: coordinates are int32 ``[..., 22]`` limb tensors.
 The unified a = -1 HWCD addition is complete on this curve, so identity and
@@ -12,10 +14,14 @@ width of ``mul_windowed`` takes the JAX package's unsigned windowed route
 like the JAX package's, that route is not oblivious
 (docs/CONSTANT_TIME.md).
 
-The one exception is ``basepoint_mul``, the fixed-base comb (K6) that key
-generation runs: it loads one entry of a shared table per window at the
-secret digit, so it is not oblivious at cache-line granularity -- as in
-the reference and the JAX package (docs/CONSTANT_TIME.md).  Its tables
+``binary_naf_mul`` runs a signed-digit ladder over host NAF digits whose
+selects read both sums at every digit; ``window_naf_mul`` gathers its
+table entry at the digit, so, like the comb below, it is not oblivious.
+
+``basepoint_mul``, the fixed-base comb (K6) that key generation runs,
+loads one entry of a shared table per window at the secret digit, so it
+is not oblivious at cache-line granularity -- as in the reference and
+the JAX package (docs/CONSTANT_TIME.md).  Its tables
 are built from the port's oracle at first use and cached as ``.npy``
 under ``~/.cache/zerocaf_tpu_torch/``, in the JAX package's file names
 and format.
@@ -33,6 +39,10 @@ import torch
 from .. import constants as C
 from .. import interop
 from .. import oracle as o
+from .. import traits as _traits
+from ..config import resolve_device
+from ..field import FieldElement, mask_like, random_bytes
+from ..ops import inv_sqrt as _isq
 from ..ops import limb as _l
 from ..ops.kernels import field_kernels as _fk
 from ..ops.limb import FIELD as _F
@@ -111,8 +121,71 @@ def _broadcast_point(p, digit_batch):
 
 
 def _const_point(limbs, shape, device):
+    """A constant point (4 rows of limbs) broadcast to ``shape`` on
+    ``device`` (None: the default device)."""
+    device = resolve_device(device)
     return tuple(_l.const(limbs[i], device).expand(*shape, _l.L)
                  for i in range(4))
+
+
+def _compress(p) -> torch.Tensor:
+    """CompressedEdwardsY encode: the canonical y bytes with the top bit set
+    where x is not the raw Tonelli root of x^2 (one inverse and one sqrt
+    chain: K2 on CUDA)."""
+    X, Y, Z, _ = p
+    zinv = _isq.inverse(Z)
+    x = _l.mul(X, zinv, _F)
+    y = _l.mul(Y, zinv, _F)
+    _, raw = _isq.sqrt_raw(_l.square(x, _F))
+    sign = ~_l.eq(raw, x, _F)
+    b = _l.to_bytes(y, _F)
+    top = b[..., 31] + torch.where(sign, 128, 0).to(torch.uint8)
+    return torch.cat([b[..., :31], top[..., None]], dim=-1)
+
+
+def _find_xx(y):
+    """xx = (y^2 - 1) / (d y^2 - a), a = -1."""
+    ys = _l.square(y, _F)
+    one = _l.one_like(y)
+    num = _l.sub(ys, one)
+    den = _l.add(_l.mul(_l.const(C.EDWARDS_D_LIMBS, y.device), ys, _F), one)
+    return _l.mul(num, _isq.inverse(den), _F)
+
+
+def _from_y(y, sign):
+    """The point with this y and x = mod_sqrt(xx, sign), as the reference's
+    new_from_y_coord.  Returns ((X, Y, Z, T), ok)."""
+    ok, x = _isq.mod_sqrt(_find_xx(y), sign)
+    return (x, y, _l.one_like(y), _l.mul(x, y, _F)), ok
+
+
+def _decompress(b):
+    """CompressedEdwardsY decode: [..., 32] uint8 -> ((X, Y, Z, T), ok)."""
+    sign = (b[..., 31] >> 7).to(torch.int32)
+    yb = torch.cat([b[..., :31], (b[..., 31] & 0x0F)[..., None]], dim=-1)
+    return _from_y(_l.from_bytes(yb, _F), sign)
+
+
+def _new_random_point(generator, shape, draws: int, device):
+    """The reference's random point, batched: ``draws`` candidate ys a lane
+    (from ``generator``), the first whose xx is a square (num * den has the
+    quadratic character of num / den; num == 0 is y = +-1, x = 0), lifted
+    once with a random x sign.  Returns ((X, Y, Z, T), ok); ok is False
+    where no draw was a square (about 2^-draws of the lanes)."""
+    device = resolve_device(device)
+    ys = FieldElement.random(generator, (draws,) + tuple(shape), device).limbs
+    signs = (random_bytes(generator, (draws,) + tuple(shape), 1, device)[..., 0]
+             & 1).to(torch.int32)
+    ys2 = _l.square(ys, _F)
+    one = _l.one_like(ys)
+    num = _l.sub(ys2, one)
+    den = _l.add(_l.mul(_l.const(C.EDWARDS_D_LIMBS, device), ys2, _F), one)
+    ok_d = _isq.legendre_is_qr(_l.mul(num, den, _F)) | _l.is_zero(num, _F)
+    idx = torch.argmax(ok_d.to(torch.int32), dim=0)          # first valid draw
+    y_sel = torch.gather(ys, 0, idx[None, ..., None].expand(1, *idx.shape, _l.L))[0]
+    s_sel = torch.gather(signs, 0, idx[None])[0]
+    pt, _ = _from_y(y_sel, s_sel)
+    return pt, ok_d.any(dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +315,8 @@ def _fixed_base_mul_signed(windows, width: int):
 
 _BASEPOINT_ROWS = tuple(C.BASEPOINT[i].copy() for i in range(4))
 _IDENTITY_ROWS = tuple(C.IDENTITY[i].copy() for i in range(4))
+_COSET_ROWS = tuple(tuple(pt[i].copy() for i in range(4))
+                    for pt in C.FOUR_COSET_GROUP)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,6 +336,39 @@ class EdwardsPoint:
     @classmethod
     def basepoint(cls, shape: tuple[int, ...] = (), device=None) -> "EdwardsPoint":
         return cls(*_const_point(_BASEPOINT_ROWS, tuple(shape), device))
+
+    @classmethod
+    def from_field_elements(cls, x: FieldElement, y: FieldElement) -> "EdwardsPoint":
+        """Affine (x, y) -> extended (x, y, 1, x y)."""
+        return cls(x.limbs, y.limbs, _l.one_like(x.limbs),
+                   _l.mul(x.limbs, y.limbs, _F))
+
+    @classmethod
+    def new_from_y_coord(cls, y: FieldElement, sign) -> tuple["EdwardsPoint", torch.Tensor]:
+        """(point, ok): x = mod_sqrt(xx, sign); ok is False where xx is not
+        a square."""
+        pt, ok = _from_y(y.limbs, mask_like(sign, y.limbs))
+        return cls(*pt), ok
+
+    @classmethod
+    def random(cls, generator: torch.Generator, shape: tuple[int, ...] = (),
+               device=None) -> "EdwardsPoint":
+        """k B for uniform scalars k drawn from ``generator``: on the curve,
+        in the prime-order subgroup (the ladder, K3 on CUDA).  For the
+        reference's rejection-sampled point, which may lie in any coset,
+        use ``new_random_point``."""
+        k = Scalar.random(generator, shape, device)
+        return cls.basepoint(shape, k.limbs.device) * k
+
+    @classmethod
+    def new_random_point(cls, generator: torch.Generator, shape: tuple[int, ...] = (),
+                         draws: int = 16, device=None) -> tuple["EdwardsPoint", torch.Tensor]:
+        """The reference's random point: rejection-sample y over ``draws``
+        candidates a lane and lift with a random x sign.  Returns (point,
+        ok); ok is False on the lanes (about 2^-draws) where no candidate
+        was on the curve."""
+        pt, ok = _new_random_point(generator, shape, draws, device)
+        return cls(*pt), ok
 
     @classmethod
     def basepoint_mul(cls, scalar: Scalar, width: int | None = None,
@@ -306,6 +414,30 @@ class EdwardsPoint:
     def __rmul__(self, scalar: Scalar) -> "EdwardsPoint":
         return self.__mul__(scalar)
 
+    def mul_by_cofactor(self) -> "EdwardsPoint":
+        """8 P by three doublings."""
+        return self.double().double().double()
+
+    def mul_by_pow_2(self, k: int) -> "EdwardsPoint":
+        """2^k P by k doublings."""
+        p = self
+        for _ in range(k):
+            p = p.double()
+        return p
+
+    def mul_raw_int(self, k: int, nbits: int = 253) -> "EdwardsPoint":
+        """k P for a python int 0 <= k < 2^nbits, not reduced mod r (the
+        order check multiplies by r itself): the oblivious ladder over
+        ``nbits`` LSB-first bits (K3 at width 1, nbits windows, on CUDA)."""
+        if not 0 <= k < 1 << nbits:
+            raise ValueError(f"mul_raw_int needs 0 <= k < 2^{nbits}")
+        dev = self.X.device
+        row = torch.tensor([(k >> i) & 1 for i in range(nbits)], dtype=torch.int32,
+                           device=dev)
+        bits = row.expand(*self.shape, nbits).contiguous()
+        pt = _broadcast_point(self._tuple(), bits.shape[:-1])
+        return EdwardsPoint(*_fk.scalar_mul_windowed_stepped(pt, bits, 1))
+
     def mul_windowed(self, scalar: Scalar, width: int = 4,
                      use_fused: bool | None = None) -> "EdwardsPoint":
         """Fixed-window multiplication over ceil(250/width) windows, routed
@@ -350,3 +482,282 @@ class EdwardsPoint:
         curve = _l.eq(left, right, _F)
         ext = _l.eq(_l.mul(T, Z, _F), _l.mul(X, Y, _F), _F)
         return curve & ext
+
+    def compress(self) -> torch.Tensor:
+        """[..., 32] uint8 CompressedEdwardsY bytes."""
+        return _compress(self._tuple())
+
+    def select(self, cond, other: "EdwardsPoint") -> "EdwardsPoint":
+        """where(cond, self, other), coordinate by coordinate."""
+        mask = mask_like(cond, self.X).to(torch.bool)
+        return EdwardsPoint(*_select(mask, self._tuple(), other._tuple()))
+
+    def to_affine(self) -> "AffinePoint":
+        zinv = _isq.inverse(self.Z)
+        return AffinePoint(_l.mul(self.X, zinv, _F), _l.mul(self.Y, zinv, _F))
+
+    def to_projective(self) -> "ProjectivePoint":
+        return ProjectivePoint(self.X, self.Y, self.Z)
+
+    def coset4(self) -> list["EdwardsPoint"]:
+        """The four Edwards points that represent this Ristretto point: P
+        and P plus each of the first three 4-torsion points."""
+        return [self] + [self + EdwardsPoint(*_const_point(
+            rows, self.shape, self.X.device)) for rows in _COSET_ROWS[:3]]
+
+    def field(self, name: str) -> FieldElement:
+        return FieldElement(getattr(self, name))
+
+    def to_ints(self):
+        """Host pull: a tuple of python-int coordinate arrays (tests only)."""
+        return tuple(FieldElement(c).to_ints() for c in self._tuple())
+
+    def __repr__(self) -> str:
+        return f"EdwardsPoint(shape={self.shape}, device={self.X.device})"
+
+
+@dataclasses.dataclass(frozen=True)
+class ProjectivePoint:
+    """(X:Y:Z) points, kept for the reference's surface; the port computes
+    in extended coordinates."""
+
+    X: torch.Tensor
+    Y: torch.Tensor
+    Z: torch.Tensor
+
+    @classmethod
+    def identity(cls, shape: tuple[int, ...] = (), device=None) -> "ProjectivePoint":
+        e = EdwardsPoint.identity(shape, device)
+        return cls(e.X, e.Y, e.Z)
+
+    def to_extended(self) -> EdwardsPoint:
+        """(X:Y:Z) -> (XZ, YZ, Z^2, XY)."""
+        return EdwardsPoint(
+            _l.mul(self.X, self.Z, _F), _l.mul(self.Y, self.Z, _F),
+            _l.square(self.Z, _F), _l.mul(self.X, self.Y, _F))
+
+    def __add__(self, other: "ProjectivePoint") -> "ProjectivePoint":
+        """Projective addition (Bernstein et al. 2008), a = -1."""
+        d = _l.const(C.EDWARDS_D_LIMBS, self.X.device)
+        A = _l.mul(self.Z, other.Z, _F)
+        B = _l.square(A, _F)
+        Cc = _l.mul(self.X, other.X, _F)
+        Dd = _l.mul(self.Y, other.Y, _F)
+        E = _l.mul(d, _l.mul(Cc, Dd, _F), _F)
+        F = _l.sub(B, E)
+        G = _l.add(B, E)
+        t = _l.sub(_l.sub(_l.mul(_l.add(self.X, self.Y),
+                                 _l.add(other.X, other.Y), _F), Cc), Dd)
+        return ProjectivePoint(
+            _l.mul(A, _l.mul(F, t, _F), _F),
+            _l.mul(A, _l.mul(G, _l.add(Dd, Cc), _F), _F),
+            _l.mul(F, G, _F))
+
+    def __neg__(self) -> "ProjectivePoint":
+        return ProjectivePoint(_l.neg(self.X), self.Y, self.Z)
+
+    def __sub__(self, other: "ProjectivePoint") -> "ProjectivePoint":
+        return self + (-other)
+
+    def double(self) -> "ProjectivePoint":
+        """dbl-2008-bbjlp, 3M+4S, a = -1."""
+        B = _l.square(_l.add(self.X, self.Y), _F)
+        Cc = _l.square(self.X, _F)
+        Dd = _l.square(self.Y, _F)
+        E = _l.neg(Cc)
+        F = _l.add(E, Dd)
+        H = _l.square(self.Z, _F)
+        J = _l.sub(F, _l.add(H, H))
+        return ProjectivePoint(
+            _l.mul(_l.sub(_l.sub(B, Cc), Dd), J, _F),
+            _l.mul(F, _l.sub(E, Dd), _F),
+            _l.mul(F, J, _F))
+
+    def __mul__(self, scalar: Scalar) -> "ProjectivePoint":
+        """Through the extended ladder (K3 on CUDA)."""
+        return (self.to_extended() * scalar).to_projective()
+
+    def eq(self, other: "ProjectivePoint") -> torch.Tensor:
+        ex = _l.eq(_l.mul(self.X, other.Z, _F), _l.mul(other.X, self.Z, _F), _F)
+        ey = _l.eq(_l.mul(self.Y, other.Z, _F), _l.mul(other.Y, self.Z, _F), _F)
+        return ex & ey
+
+    def is_valid(self) -> torch.Tensor:
+        xs = _l.square(self.X, _F)
+        ys = _l.square(self.Y, _F)
+        zs = _l.square(self.Z, _F)
+        left = _l.mul(_l.sub(ys, xs), zs, _F)
+        right = _l.add(_l.square(zs, _F),
+                       _l.mul(_l.const(C.EDWARDS_D_LIMBS, self.X.device),
+                              _l.mul(xs, ys, _F), _F))
+        return _l.eq(left, right, _F)
+
+    @classmethod
+    def new_from_y_coord(cls, y: FieldElement, sign) -> tuple["ProjectivePoint", torch.Tensor]:
+        (X, Y, Z, _), ok = _from_y(y.limbs, mask_like(sign, y.limbs))
+        return cls(X, Y, Z), ok
+
+    @classmethod
+    def new_random_point(cls, generator: torch.Generator, shape: tuple[int, ...] = (),
+                         draws: int = 16, device=None) -> tuple["ProjectivePoint", torch.Tensor]:
+        """See ``EdwardsPoint.new_random_point``."""
+        (X, Y, Z, _), ok = _new_random_point(generator, shape, draws, device)
+        return cls(X, Y, Z), ok
+
+    @property
+    def shape(self):
+        return tuple(self.X.shape[:-1])
+
+    def __repr__(self) -> str:
+        return f"ProjectivePoint(shape={self.shape}, device={self.X.device})"
+
+
+@dataclasses.dataclass(frozen=True)
+class AffinePoint:
+    """(x, y) points: equality, validity and the lift to extended."""
+
+    X: torch.Tensor
+    Y: torch.Tensor
+
+    @classmethod
+    def identity(cls, shape: tuple[int, ...] = (), device=None) -> "AffinePoint":
+        e = EdwardsPoint.identity(shape, device)
+        return cls(e.X, e.Y)
+
+    def eq(self, other: "AffinePoint") -> torch.Tensor:
+        return _l.eq(self.X, other.X, _F) & _l.eq(self.Y, other.Y, _F)
+
+    def is_valid(self) -> torch.Tensor:
+        xs = _l.square(self.X, _F)
+        ys = _l.square(self.Y, _F)
+        left = _l.sub(ys, xs)
+        right = _l.add(_l.one_like(self.X),
+                       _l.mul(_l.const(C.EDWARDS_D_LIMBS, self.X.device),
+                              _l.mul(xs, ys, _F), _F))
+        return _l.eq(left, right, _F)
+
+    def to_extended(self) -> EdwardsPoint:
+        return EdwardsPoint(self.X, self.Y, _l.one_like(self.X),
+                            _l.mul(self.X, self.Y, _F))
+
+    def __neg__(self) -> "AffinePoint":
+        return AffinePoint(_l.neg(self.X), self.Y)
+
+    @property
+    def shape(self):
+        return tuple(self.X.shape[:-1])
+
+    def __repr__(self) -> str:
+        return f"AffinePoint(shape={self.shape}, device={self.X.device})"
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedEdwardsY:
+    """The 32-byte compressed-y wire format; equality is byte equality."""
+
+    bytes: torch.Tensor  # [..., 32] uint8
+
+    @classmethod
+    def identity(cls, shape: tuple[int, ...] = (), device=None) -> "CompressedEdwardsY":
+        b = torch.zeros(tuple(shape) + (32,), dtype=torch.uint8,
+                        device=resolve_device(device))
+        b[..., 0] = 1
+        return cls(b)
+
+    def decompress(self) -> tuple[EdwardsPoint, torch.Tensor]:
+        pt, ok = _decompress(self.bytes)
+        return EdwardsPoint(*pt), ok
+
+    def eq(self, other: "CompressedEdwardsY") -> torch.Tensor:
+        return torch.all(self.bytes == other.bytes, dim=-1)
+
+    def __repr__(self) -> str:
+        return f"CompressedEdwardsY(shape={tuple(self.bytes.shape[:-1])})"
+
+
+# ---------------------------------------------------------------------------
+# The reference's free scalar-multiplication functions
+# ---------------------------------------------------------------------------
+
+
+def _need_double(point) -> None:
+    if not isinstance(point, _traits.Double):
+        raise TypeError(f"{type(point).__name__} does not implement Double")
+
+
+def double_and_add(point, scalar: Scalar) -> EdwardsPoint:
+    """k P for any point with ``double`` and ``*`` (the Double trait):
+    ``point * scalar``, the oblivious ladder (K3 on CUDA)."""
+    _need_double(point)
+    return point * scalar
+
+
+def ltr_bin_mul(point, scalar: Scalar) -> EdwardsPoint:
+    """The same ladder as ``double_and_add``; the reference's 249-bit quirk
+    (see the oracle's ltr_bin_mul) is not replicated."""
+    _need_double(point)
+    return point * scalar
+
+
+def mul_by_cofactor(point) -> EdwardsPoint:
+    """8 P for any point with ``double``."""
+    _need_double(point)
+    return point.double().double().double()
+
+
+def mul_by_pow_2(point, k: int) -> EdwardsPoint:
+    """2^k P for any point with ``double``."""
+    _need_double(point)
+    for _ in range(k):
+        point = point.double()
+    return point
+
+
+def _signed_digit_mul(p, digits):
+    """MSB-first ladder over signed digits in {-1, 0, +1} [..., nbits]: per
+    digit one doubling, then P and -P added to it in one stacked addition,
+    and two selects.  The selects read both sums whatever the digit."""
+    p = _broadcast_point(p, digits.shape[:-1])
+    both = tuple(torch.stack(c) for c in zip(p, _neg(p)))      # [2, ..., 22]
+    Q = _identity_like(p)
+    for d in reversed(digits.unbind(-1)):
+        Q = _double(Q)
+        sums = _add(tuple(c.expand(2, *c.shape) for c in Q), both)
+        Qa, Qs = tuple(c[0] for c in sums), tuple(c[1] for c in sums)
+        Q = _select(d > 0, Qa, _select(d < 0, Qs, Q))
+    return Q
+
+
+def binary_naf_mul(point: EdwardsPoint, scalar: Scalar, nbits: int = 256) -> EdwardsPoint:
+    """k P by the NAF of k (recoded on the host, ``Scalar.compute_naf``)
+    and a fixed nbits-step signed-digit ladder."""
+    digits = torch.as_tensor(scalar.compute_naf(nbits).astype(np.int32),
+                             device=point.X.device)
+    return EdwardsPoint(*_signed_digit_mul(point._tuple(), digits))
+
+
+def _window_naf_mul(digits):
+    """Fixed-base width-w NAF ladder, MSB first: per digit one doubling and
+    one addition of the entry |d| of ``BASEPOINT_MULTIPLES_TABLE``, negated
+    for a negative digit.  The gather is indexed by the digit: this path is
+    not oblivious (like the comb, docs/CONSTANT_TIME.md)."""
+    dev = digits.device
+    table = _l.const(C.BASEPOINT_MULTIPLES_TABLE, dev)            # [126, 4, 22]
+    Q = _const_point(_IDENTITY_ROWS, digits.shape[:-1], dev)
+    for d in reversed(digits.unbind(-1)):
+        Q = _double(Q)
+        rows = table[d.abs().long()]                              # [..., 4, 22]
+        entry = tuple(rows[..., i, :] for i in range(4))
+        Q = _add(Q, _select(d < 0, _neg(entry), entry))
+    return Q
+
+
+def window_naf_mul(scalar: Scalar, width: int, nbits: int = 256) -> EdwardsPoint:
+    """k B by the width-w NAF of k (recoded on the host) over the table of
+    B's first 126 multiples, 2 <= width <= 7.  A zero digit adds the
+    table's identity entry.  Not oblivious: see ``_window_naf_mul``."""
+    if not 2 <= width <= 7:
+        raise ValueError(f"window_naf_mul width must be in 2..7, got {width}")
+    digits = torch.as_tensor(scalar.compute_window_naf(width, nbits).astype(np.int32),
+                             device=scalar.limbs.device)
+    return EdwardsPoint(*_window_naf_mul(digits))

@@ -14,7 +14,8 @@ import dataclasses
 import torch
 
 from .. import constants as C
-from ..field import FieldElement
+from ..config import resolve_device
+from ..field import FieldElement, random_bytes
 from ..ops import inv_sqrt as _isq
 from ..ops import limb as _l
 from ..ops.limb import FIELD as _F
@@ -131,6 +132,13 @@ class RistrettoPoint:
         p2 = _elligator(_l.from_bytes(b[..., 32:], _F))
         return cls(_ed.EdwardsPoint(*_ed._add(p1, p2)))
 
+    @classmethod
+    def random(cls, generator: torch.Generator, shape: tuple[int, ...] = (),
+               device=None) -> "RistrettoPoint":
+        """Uniform points: Elligator twice on 64 bytes drawn from
+        ``generator`` (on the generator's device), placed on ``device``."""
+        return cls.from_uniform_bytes(random_bytes(generator, shape, 64, device))
+
     def __add__(self, other: "RistrettoPoint") -> "RistrettoPoint":
         return RistrettoPoint(self.point + other.point)
 
@@ -139,6 +147,9 @@ class RistrettoPoint:
 
     def __neg__(self) -> "RistrettoPoint":
         return RistrettoPoint(-self.point)
+
+    def double(self) -> "RistrettoPoint":
+        return RistrettoPoint(self.point.double())
 
     def __mul__(self, scalar: Scalar) -> "RistrettoPoint":
         return RistrettoPoint(self.point * scalar)
@@ -160,8 +171,24 @@ class RistrettoPoint:
     def shape(self):
         return self.point.shape
 
+    def __getitem__(self, idx) -> "RistrettoPoint":
+        return RistrettoPoint(self.point[idx])
+
     def eq(self, other: "RistrettoPoint") -> torch.Tensor:
         return _ristretto_eq(self.point._tuple(), other.point._tuple())
+
+    def is_valid(self) -> torch.Tensor:
+        """Strict order-r validity: on the curve and r P == identity (the
+        ladder over r's 253 bits: K3 at 253 windows on CUDA)."""
+        rp = self.point.mul_raw_int(C.R)
+        ident = _ed.EdwardsPoint.identity(self.shape, self.point.X.device)
+        return self.point.is_valid() & rp.eq(ident)
+
+    def coset4(self) -> list[_ed.EdwardsPoint]:
+        return self.point.coset4()
+
+    def __repr__(self) -> str:
+        return f"RistrettoPoint(shape={self.shape}, device={self.point.X.device})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,10 +199,14 @@ class CompressedRistretto:
 
     @classmethod
     def identity(cls, shape: tuple[int, ...] = (), device=None) -> "CompressedRistretto":
-        return cls(torch.zeros(tuple(shape) + (32,), dtype=torch.uint8, device=device))
+        return cls(torch.zeros(tuple(shape) + (32,), dtype=torch.uint8,
+                               device=resolve_device(device)))
 
     def decompress(self) -> tuple[RistrettoPoint, torch.Tensor]:
         return RistrettoPoint.decompress(self.bytes)
 
     def eq(self, other: "CompressedRistretto") -> torch.Tensor:
         return torch.all(self.bytes == other.bytes, dim=-1)
+
+    def __repr__(self) -> str:
+        return f"CompressedRistretto(shape={tuple(self.bytes.shape[:-1])})"

@@ -18,7 +18,8 @@ checks its tensors (int32, limb axis 22, contiguous, one device) and
 raises on anything else.  For CUDA tensors it launches its kernel, or
 raises if the kernel library cannot be built or the launch fails; for CPU
 tensors it runs the plain version beside it.  ``<wrapper>.launches``
-counts kernel launches and nothing else.
+counts kernel launches and nothing else (K1's and K2's ``by_modulus``
+split them between p and r).
 
 The plain versions use the JAX package's limb algebra (``ops/limb.py``):
 schoolbook columns, two-pass keep-top carries, cascade folds and single
@@ -277,10 +278,12 @@ def mul_tiled(a, b, spec: ModSpec = FIELD):
     if n:
         _launch("mul_tiled", a.device, "zc_mul", a, b, out, n, spec.kernel_id)
         mul_tiled.launches += 1
+        mul_tiled.by_modulus[spec.name] += 1
     return out
 
 
 mul_tiled.launches = 0
+mul_tiled.by_modulus = {"field": 0, "scalar": 0}    # the launches by modulus
 
 
 # ---------------------------------------------------------------------------
@@ -335,10 +338,12 @@ def pow_tiled(a, e: int, spec: ModSpec = FIELD):
         _launch("pow_tiled", a.device, "zc_pow", a, out, digits, digits.numel(),
                 n, spec.kernel_id)
         pow_tiled.launches += 1
+        pow_tiled.by_modulus[spec.name] += 1
     return out
 
 
 pow_tiled.launches = 0
+pow_tiled.by_modulus = {"field": 0, "scalar": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -701,6 +706,8 @@ def kernel_wrappers():
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers():
         fn.launches = 0
+    for fn in (mul_tiled, pow_tiled):
+        fn.by_modulus = dict.fromkeys(fn.by_modulus, 0)
 
 
 def launch_counts() -> dict[str, int]:

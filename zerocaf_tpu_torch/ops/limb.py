@@ -308,6 +308,23 @@ def geq_const(x_canonical: torch.Tensor, bound_limbs: np.ndarray) -> torch.Tenso
     return result | ~decided
 
 
+_LIMB_WEIGHTS: dict = {}
+
+
+def cmp(a: torch.Tensor, b: torch.Tensor, spec: ModSpec) -> torch.Tensor:
+    """Three-way compare of the canonical values: -1 / 0 / +1 int32 per
+    lane.  The most significant differing limb decides: limb i's sign is
+    weighted by 2^i, which outweighs every lower limb's together."""
+    ca = canonical(a, spec)
+    cb = canonical(b, spec)
+    key = (ca.shape[-1], ca.device)
+    w = _LIMB_WEIGHTS.get(key)
+    if w is None:
+        w = _LIMB_WEIGHTS[key] = 1 << torch.arange(ca.shape[-1], dtype=torch.int32,
+                                                   device=ca.device)
+    return torch.sign((torch.sign(ca - cb) * w).sum(-1, dtype=torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # Byte codecs (canonical little-endian 32 bytes)
 # ---------------------------------------------------------------------------
@@ -385,4 +402,18 @@ def pow_const(a: torch.Tensor, e: int, spec: ModSpec) -> torch.Tensor:
         res = square(res, spec)
         if bit == "1":
             res = mul(res, a, spec)
+    return res
+
+
+def pow_batched(a: torch.Tensor, e_bits: torch.Tensor, spec: ModSpec) -> torch.Tensor:
+    """a^e for per-lane exponents given as LSB-first bits [..., nbits]: a
+    fixed nbits-step ladder, each step a multiply kept where the bit is set
+    and a squaring (two K1 launches a step on CUDA)."""
+    a, _ = torch.broadcast_tensors(a, e_bits[..., :1].expand(
+        *e_bits.shape[:-1], a.shape[-1]))
+    res = one_like(a)
+    base = a.contiguous()
+    for bit in e_bits.unbind(-1):
+        res = select(bit.to(torch.bool), mul(res, base, spec), res)
+        base = square(base, spec)
     return res

@@ -3,8 +3,9 @@ judge and the source of its constants.
 
 A direct, slow, obviously-correct implementation with Python ints of what
 the port computes: field arithmetic mod p, Edwards points in extended
-coordinates with the unified a = -1 HWCD addition, the Ristretto encode,
-decode and Elligator map, MSM, and the radix-2^12 limb codecs.  It imports
+coordinates with the unified a = -1 HWCD addition, their compressed-y
+encoding and the Montgomery u map, the Ristretto encode, decode, Elligator
+map and order check, MSM, and the radix-2^12 limb codecs.  It imports
 nothing, so the port derives every constant from it without any other
 package.  ``tests/test_torch_constants.py`` holds it equal to the JAX
 package's oracle.
@@ -155,6 +156,14 @@ INV_SQRT_A_MINUS_D = sqrt_positive(finv(fsub(EDWARDS_A, EDWARDS_D)))
 SQRT_AD_MINUS_ONE = sqrt_positive(fsub(fmul(EDWARDS_A, EDWARDS_D), 1))
 ONE_MINUS_D_SQ = fsub(1, fsquare(EDWARDS_D))
 D_MINUS_ONE_SQ = fsquare(fsub(EDWARDS_D, 1))
+INV_SQRT_A = P - SQRT_M1
+
+INVERSE_MOD_TWO = pow(2, P - 2, P)        # 1/2 (mod p)
+MINUS_ONE_HALF = (P - 1) // 2             # (-1/2) (mod p)
+SCALAR_INVERSE_MOD_TWO = pow(2, R - 2, R)  # 1/2 (mod r)
+
+MONT_A = fmul(2, fdiv(fadd(EDWARDS_A, EDWARDS_D), fsub(EDWARDS_A, EDWARDS_D)))
+MONT_B = fdiv(4, fsub(EDWARDS_A, EDWARDS_D))
 
 # ---------------------------------------------------------------------------
 # Byte codecs: canonical 32-byte little-endian
@@ -260,8 +269,69 @@ def point_from_y(y: int, sign: int) -> ExtPoint | None:
     return (x, y, 1, fmul(x, y))
 
 
+def edwards_compress(p: ExtPoint) -> bytes:
+    """CompressedEdwardsY (edwards.rs:613-629): 255-bit y || sign(x) where the
+    sign bit is 0 iff x equals the raw Tonelli root of xx."""
+    x, y = point_to_affine(p)
+    raw = mod_sqrt_ts(find_xx(y))
+    sign = 0 if raw == x else 1
+    b = bytearray(fe_to_bytes(y))
+    b[31] |= sign << 7
+    return bytes(b)
+
+
+def edwards_decompress(b: bytes) -> ExtPoint | None:
+    """CompressedEdwardsY::decompress (edwards.rs:313-326)."""
+    sign = b[31] >> 7
+    yb = bytearray(b)
+    yb[31] &= 0b0000_1111
+    y = fe_from_bytes(bytes(yb))
+    return point_from_y(y, sign)
+
+
+def point_is_valid(p: ExtPoint) -> bool:
+    """Curve equation in projective form (edwards.rs:733-748) plus extended
+    coordinate consistency T*Z == X*Y."""
+    X, Y, Z, T = p
+    xs, ys, zs = fsquare(X), fsquare(Y), fsquare(Z)
+    left = fmul(fadd(fmul(EDWARDS_A, xs), ys), zs)
+    right = fadd(fsquare(zs), fmul(EDWARDS_D, fmul(xs, ys)))
+    return left == right and fmul(T, Z) == fmul(X, Y)
+
+
+def edwards_to_montgomery_u(p: ExtPoint) -> int:
+    """u = (Z + Y) / (Z - Y); the Montgomery u-coordinate of an Edwards point."""
+    _, Y, Z, _ = p
+    return fdiv(fadd(Z, Y), fsub(Z, Y))
+
+
+def montgomery_u_to_edwards_y(u: int) -> int:
+    """y = (u - 1) / (u + 1): inverse of the map above."""
+    return fdiv(fsub(u, 1), fadd(u, 1))
+
+
 # Basepoint: y = 3/5 (mod p), x the raw root (sign 0).
 BASEPOINT: ExtPoint = point_from_y(fdiv(3, 5), 0)
+
+# 4-torsion coset representatives exactly as the reference lists them
+# (constants.rs:141-184): (1,0), (INV_SQRT_A, 0), (0,-1), (SQRT_M1, 0).
+FOUR_COSET_GROUP: list[ExtPoint] = [
+    (1, 0, 1, 0),
+    (INV_SQRT_A, 0, 1, 0),
+    (0, P - 1, 1, 0),
+    (SQRT_M1, 0, 1, 0),
+]
+
+
+def coset4(p: ExtPoint) -> list[ExtPoint]:
+    """The four Edwards points representing the same Ristretto point
+    (edwards.rs:603-610)."""
+    return [p] + [point_add(p, t) for t in FOUR_COSET_GROUP[:3]]
+
+
+def ristretto_is_valid(p: ExtPoint) -> bool:
+    """Order-L check plus curve membership (ristretto.rs:205-222)."""
+    return point_is_valid(p) and point_eq(scalar_mul(p, R), IDENTITY)
 
 # ---------------------------------------------------------------------------
 # Ristretto
