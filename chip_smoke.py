@@ -101,6 +101,7 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      times and peak memory;
  25. msm_with_checkpoints at 2^16 points in 4 blocks, and the same job
      resumed from its file after block 2, equal to the one-shot MSM;
+     checkpoint.load with no device returns the partial on the card;
  26. surface at 32768 lanes: Scalar (a b b^-1 == a, half, pow by a Scalar,
      cmp, >>, mods_2_pow_k) and FieldElement (x / y y == x, sqrt_ratio_i,
      inv_sqrt, legendre_symbol, mod_sqrt, abs, is_positive); the ladders
@@ -116,7 +117,22 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      sequential, pipelined and of the calls' dispatch alone; the host
      functions that take most of a sequential sweep (cProfile); the
      synchronising calls that torch.cuda.set_sync_debug_mode("warn")
-     reports inside the submits.
+     reports inside the submits;
+ 28. backend: tests/test_backend.py's flow under use_backend("f32x29") at
+     32768 lanes (field a b + a - b, inverse, sqrt_ratio_i and bytes;
+     scalar s t + s and bytes), no kernel launched, 64 sampled lanes equal
+     to the oracle and every lane byte for byte equal to the int32
+     backend's (K1, K2); the f32x29 product again with TF32 allowed, the
+     same bytes; CUDA-event times of one f32x29 multiply and one K1 at
+     2^16 lanes, with the f32x29 multiply's launches (profiler);
+ 29. entry: zerocaf_tpu_torch.entry's forward step at its batch of 256 and
+     at 32768: its bytes equal the oracle's (every lane at 256, 64 sampled
+     at 32768), K3 once a call and K1 and K2 launched; the median of
+     utils.profiling.timeit; utils.profiling.trace around one call writes
+     a Chrome trace whose kernel events include k_ladder and k_pow;
+ 30. python -m zerocaf_tpu_torch.entry (the forward step and
+     dryrun_multichip(4): four gloo ranks sharing the card, both ok lines)
+     and each example's main() on the card.
 Every kernel computes on the 8 x 32-bit core and writes canonical limbs;
 each is held against its plain version's canonical limbs.  K1's launches
 are counted on each main path: ECDH (phases 5-6), Engine.msm (phase 11)
@@ -140,6 +156,8 @@ import time
 import numpy as np
 import torch
 
+from zerocaf_tpu_torch.utils.profiling import OPS_8X32
+
 BATCH = 32768                 # Engine default: the serving batch
 MUL_LANES = 1 << 16           # K5 checked at 2^16 lanes, K1 also timed there
 K1_BIG = 1 << 20              # K1's lanes in Engine.msm's decode at 2^20
@@ -158,6 +176,8 @@ CKPT_BATCH = 1 << 16          # msm_with_checkpoints: 4 blocks of 2^14
 SURFACE_SAMPLE = 64           # lanes of the surface phase held against the oracle
 PIPE_BATCHES = 8              # batches a pipeline sweep serves
 SEED = 20261016
+BACKEND_SAMPLE = 64           # lanes of phases 28-29 held against the oracle
+ENTRY_BATCH = 256             # zerocaf_tpu_torch.entry's default batch
 ECDH_KERNELS = ("mul_tiled", "pow_tiled", "scalar_mul_windowed_stepped",
                 "scalar_mul_windowed_signed")
 MSM_KERNELS = ("padd_tiled", "to_field32", "bucket_accum_all", "combine_tables")
@@ -180,13 +200,10 @@ PDBL = 4 * SQ + 3 * MUL                         # pdbl without T
 # Integer multiplies of one field multiply and square, on two bases.  The
 # 22 x 12 algebra of the plain versions (zerocaf_tpu_torch/ops/limb.py):
 # the 22 x 22 schoolbook plus the three folds (12 x (23 + 14 + 5)), and
-# 22 + 231 products plus the folds.  The 8
-# x 32 core of field32.cuh, the least work a field multiply needs on this
-# card: 64 word products and 8 reduction steps of 5 (m = t0 (-p^-1) and
-# m times p's four nonzero low words), and for the square 28 cross
-# products, 8 squares and the same reduction.  Only products count: the
-# adds and carries ride in the multiply-adds.
-OPS_8X32 = (8 * 8 + 8 * 5, 28 + 8 + 8 * 5)
+# 22 + 231 products plus the folds.  The 8 x 32 core of field32.cuh, the
+# least work a field multiply needs on this card: OPS_8X32, the cost model
+# of zerocaf_tpu_torch/utils/profiling.py (104 word products a multiply,
+# 76 a square).
 OPS_22X12 = (22 * 22 + 12 * (23 + 14 + 5), 22 + 231 + 12 * (23 + 14 + 5))
 PT_BYTES = 4 * 22 * 4                           # one extended point
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
@@ -794,6 +811,12 @@ def main() -> None:
     surface_phases(dev, card, record)
     pipeline_phases(dev, card, pk_b)
     phase("surface and pipeline", f"{time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    backend_phase(dev, card)
+    entry_phase(dev, card)
+    dryrun_examples_phase(card)
+    phase("backend, entry, dry run and examples",
+          f"{time.perf_counter() - t_new:.1f} s")
 
     replaces = {"mul_tiled": (SOURCE, TPU_KERNELS, 1133),
                 "pow_tiled": (SOURCE, TPU_KERNELS, 1030),
@@ -1595,14 +1618,17 @@ def checkpoint_phase(dev, ctx) -> None:
         full = enc(checkpoint.msm_with_checkpoints(pts, s, block, f"{tmpdir}/a.ckpt"))
         checkpoint.msm_with_checkpoints(pts[:2 * block], s[:2 * block], block,
                                         f"{tmpdir}/b.ckpt")
-        stopped_at = checkpoint.load(f"{tmpdir}/b.ckpt", dev)[1]
+        stopped, stopped_at, _ = checkpoint.load(f"{tmpdir}/b.ckpt")
         resumed = enc(checkpoint.msm_with_checkpoints(pts, s, block,
                                                       f"{tmpdir}/b.ckpt"))
     if not (one_shot == full == resumed == ctx["oracle_wire"](n)) or stopped_at != 2:
         raise AssertionError("msm_with_checkpoints differs from the one-shot MSM")
+    if stopped.X.device != dev:
+        raise AssertionError(f"checkpoint.load with no device gave {stopped.X.device}")
     phase("checkpoint", f"{n} points in 4 blocks: the checkpointed sum, and the "
           f"job resumed from its file after block {stopped_at}, equal the "
-          f"one-shot MSM and the oracle")
+          f"one-shot MSM and the oracle; checkpoint.load with no device "
+          f"returns the partial on {stopped.X.device}")
 
 
 def surface_counts() -> dict[str, int]:
@@ -1957,6 +1983,217 @@ def profile_copies(label: str, fn, top: int = 8) -> None:
           f"device ms in {len(by_site)} call sites")
     for where, (ms, count) in sorted(by_site.items(), key=lambda kv: -kv[1][0])[:top]:
         phase(label, f"{ms:9.3f} ms {count:5d}x {where}")
+
+
+
+def backend_phase(dev, card) -> None:
+    """Phase 28: tests/test_backend.py's end-to-end flow under
+    use_backend("f32x29") at BATCH lanes on the card, inputs from the
+    seed: no kernel may launch (f32x29 is plain PyTorch), SAMPLE lanes
+    equal the oracle, and every lane's bytes equal the int32 backend's
+    (K1, K2).  The field product is repeated with TF32 allowed; then one
+    f32x29 multiply and one K1 are timed at 2^16 lanes."""
+    import zerocaf_tpu_torch as zt
+    from zerocaf_tpu_torch import config
+    from zerocaf_tpu_torch import oracle as o
+    from zerocaf_tpu_torch.ops import limb
+    from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
+    from zerocaf_tpu_torch.ops.kernels import msm_kernels as mk
+
+    n = BATCH
+    rng = np.random.default_rng(SEED + 28)
+    raw = rng.integers(0, 256, (4, n, 32), dtype=np.uint8)
+    raw[2:, :, 31] &= 0x0F                     # scalars below 2^252
+    cards = torch.as_tensor(raw).to(dev)
+    lanes = rng.choice(n, BACKEND_SAMPLE, replace=False)
+
+    def flow():
+        """The field and scalar flow under the active backend: a dict of
+        host byte arrays and masks."""
+        FE, SC = zt.FieldElement, zt.Scalar
+        a, b = FE.from_bytes(cards[0]), FE.from_bytes(cards[1])
+        s, t = SC.from_bytes(cards[2])[0], SC.from_bytes(cards[3])[0]
+        ok, root = a.sqrt_ratio_i(FE.one(dev).broadcast_to((n,)))
+        out = {"spec": (a.spec.name, s.spec.name),
+               "field": (a * b + a - b).to_bytes(), "inverse": a.inverse().to_bytes(),
+               "ok": ok, "root": root.to_bytes(), "bytes": a.to_bytes(),
+               "scalar": (s * t + s).to_bytes(), "sbytes": s.to_bytes()}
+        torch.cuda.synchronize()
+        return {k: v if k == "spec" else v.cpu().numpy() for k, v in out.items()}
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with config.use_backend("f32x29"):
+        f9 = flow()
+    f9_s = time.perf_counter() - t0
+    launched = {k: v for k, v in {**fk.launch_counts(), **mk.launch_counts()}.items()
+                if v}
+    if f9["spec"] != ("field_f9", "scalar_f9") or launched:
+        raise AssertionError(f"backend f32x29: specs {f9['spec']}, kernels "
+                             f"launched {launched}")
+    reset_counts()
+    t0 = time.perf_counter()
+    i32 = flow()
+    i32_s = time.perf_counter() - t0
+    k1, k2 = fk.mul_tiled.launches, fk.pow_tiled.launches
+    if not (k1 and k2):
+        raise AssertionError(f"backend i32x22: K1 {k1}, K2 {k2} launches")
+    for key in f9:
+        if key != "spec" and not np.array_equal(f9[key], i32[key]):
+            bad = int((f9[key] != i32[key]).reshape(n, -1).any(-1).sum())
+            raise AssertionError(f"backend: f32x29 {key} differs from the int32 "
+                                 f"backend on {bad} lanes")
+    vals = [[int.from_bytes(raw[j, i].tobytes(), "little") for i in lanes]
+            for j in range(4)]
+    for i, x, y, s, t in zip(lanes, *vals):
+        x, y = x % o.P, y % o.P
+        ok, root = o.sqrt_ratio_i(x, 1)
+        want = {"field": (x * y + x - y) % o.P, "inverse": pow(x, o.P - 2, o.P),
+                "root": root, "bytes": x, "scalar": (s * t + s) % o.R,
+                "sbytes": s % o.R}
+        for key, v in want.items():
+            if f9[key][i].tobytes() != v.to_bytes(32, "little"):
+                raise AssertionError(f"backend f32x29, lane {i}: {key}")
+        if bool(f9["ok"][i]) != ok:
+            raise AssertionError(f"backend f32x29, lane {i}: sqrt_ratio_i ok")
+
+    # the field product again with TF32 allowed: the same bytes
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("medium")
+        with config.use_backend("f32x29"):
+            a = zt.FieldElement.from_bytes(cards[0])
+            b = zt.FieldElement.from_bytes(cards[1])
+            tf32 = (a * b + a - b).to_bytes().cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    if not np.array_equal(tf32, f9["field"]):
+        raise AssertionError("backend f32x29: the product changed with TF32 allowed")
+    phase("backend", f"f32x29 at {n} lanes: field a b + a - b, inverse, "
+          f"sqrt_ratio_i, bytes and scalar s t + s, bytes: no kernel launched, "
+          f"{BACKEND_SAMPLE} sampled lanes equal the oracle, every lane equal to "
+          f"the int32 backend's (K1 {k1}, K2 {k2} launches); the same bytes "
+          f"with TF32 allowed; flow {f9_s:.2f} s on f32x29, {i32_s:.2f} s on "
+          f"i32x22 (first calls, host clock)")
+
+    # one multiply at 2^16 lanes: f32x29 (plain PyTorch) against K1
+    m = MUL_LANES
+    x9 = limb.from_bytes(torch.as_tensor(rng.integers(0, 256, (m, 32), dtype=np.uint8)
+                                         ).to(dev), limb.FIELD_F9)
+    y9 = limb.from_bytes(torch.as_tensor(rng.integers(0, 256, (m, 32), dtype=np.uint8)
+                                         ).to(dev), limb.FIELD_F9)
+    x, y = (limb.from_bytes(limb.to_bytes(v, limb.FIELD_F9), limb.FIELD) for v in (x9, y9))
+    if not torch.equal(limb.to_bytes(limb.mul(x9, y9, limb.FIELD_F9), limb.FIELD_F9),
+                       limb.to_bytes(fk.mul_tiled(x, y, limb.FIELD), limb.FIELD)):
+        raise AssertionError("backend: the f32x29 multiply differs from K1 at 2^16")
+    ms9 = cuda_ms(lambda: limb.mul(x9, y9, limb.FIELD_F9), 20)
+    ms1 = cuda_ms(lambda: fk.mul_tiled(x, y, limb.FIELD), 50)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        limb.mul(x9, y9, limb.FIELD_F9)
+        torch.cuda.synchronize()
+    f9_launches = sum(e.count for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+    phase("backend", f"{card}: one multiply at {m} lanes: f32x29 {ms9:.4f} ms "
+          f"({f9_launches} kernel launches, profiler), K1 {ms1:.4f} ms (one "
+          f"launch); CUDA events over back-to-back calls; f32x29 / K1 "
+          f"{ms9 / ms1:.1f}")
+
+
+def entry_phase(dev, card) -> None:
+    """Phase 29: zerocaf_tpu_torch.entry's forward step (k B by the ladder,
+    then Ristretto compression) at its batch and at BATCH lanes: its bytes
+    equal the oracle's, K3 launches once a call and K1 and K2 launch; the
+    median of utils.profiling.timeit; and utils.profiling.trace around one
+    call, whose Chrome trace must name k_ladder and k_pow."""
+    import tempfile
+
+    from zerocaf_tpu_torch import oracle as o
+    from zerocaf_tpu_torch.entry import entry
+    from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
+    from zerocaf_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(SEED + 29)
+    for batch in (ENTRY_BATCH, BATCH):
+        fn, args = entry(batch=batch, device=dev)
+        fn(*(a[:256] for a in args))                 # warm-up
+        reset_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        k3, k2, k1 = (fk.scalar_mul_windowed_stepped.launches, fk.pow_tiled.launches,
+                      fk.mul_tiled.launches)
+        if k3 != 1 or not k2 or not k1 or tuple(out.shape) != (batch, 32):
+            raise AssertionError(f"entry at {batch}: shape {tuple(out.shape)}, "
+                                 f"K3 {k3}, K2 {k2}, K1 {k1} launches")
+        got = out.cpu().numpy()
+        bits = args[1].cpu().numpy()
+        lanes = (range(batch) if batch == ENTRY_BATCH
+                 else rng.choice(batch, BACKEND_SAMPLE, replace=False))
+        for i in lanes:
+            k = sum(int(v) << j for j, v in enumerate(bits[i]))
+            if got[i].tobytes() != o.ristretto_compress(o.scalar_mul(o.BASEPOINT, k)):
+                raise AssertionError(f"entry at {batch}, lane {i}: differs from "
+                                     "the oracle")
+        med = profiling.timeit(fn, *args)
+        phase("entry", f"{card}: batch {batch}: "
+              f"{'every lane' if batch == ENTRY_BATCH else f'{BACKEND_SAMPLE} sampled lanes'}"
+              f" equal the oracle; K3 {k3}, K2 {k2}, K1 {k1} launches a call; "
+              f"timeit median {med * 1e3:.3f} ms, {batch / med:.0f} scalar "
+              f"mults + encodes/s")
+    # two calls: on the H100 the profiler has lost the record of one
+    # call's k_ladder (its trace held k_pow and 25 k_mul, no k_ladder)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        with profiling.trace(tmpdir) as prof:
+            for _ in range(2):
+                fn(*args)
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    named = {k: sum(k in name for name in kernels) for k in ("k_ladder", "k_pow", "k_mul")}
+    averaged = {k: sum(e.count for e in prof.key_averages() if k in e.key)
+                for k in named}
+    phase("entry", f"utils.profiling.trace: {len(kernels)} kernel events in the "
+          f"Chrome trace of two calls at {BATCH}, of them {json.dumps(named)} "
+          f"(key_averages: {json.dumps(averaged)}); zc kernels named: "
+          f"{sorted({n.split('(')[0] for n in kernels if 'zc::' in n})}")
+    if not (named["k_ladder"] and named["k_pow"]):
+        raise AssertionError(f"entry trace: kernel events {named} of {len(kernels)}")
+
+
+def dryrun_examples_phase(card) -> None:
+    """Phase 30: ``python -m zerocaf_tpu_torch.entry`` in its own process
+    (the forward step, then dryrun_multichip(4): four gloo ranks on the
+    card, each asserting against the oracle), whose output must hold the
+    dry run's two ok lines; then each example's main() on the card."""
+    import sys
+
+    from zerocaf_tpu_torch.examples import basic_ops, msm_demo, serving
+
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "zerocaf_tpu_torch.entry"],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in run.stdout.splitlines()
+             if ln.startswith(("entry forward", "dryrun_multichip"))]
+    for ln in lines:
+        phase("dry run", ln)
+    if run.returncode or len([ln for ln in lines if ln.endswith(" ok")]) != 2:
+        raise AssertionError(f"python -m zerocaf_tpu_torch.entry: rc "
+                             f"{run.returncode}\n{run.stdout[-2000:]}\n"
+                             f"{run.stderr[-4000:]}")
+    phase("dry run", f"{card}: python -m zerocaf_tpu_torch.entry, 4 gloo ranks "
+          f"sharing the card: both configurations ok, {wall:.1f} s")
+    for name, mod in (("basic_ops", basic_ops), ("msm_demo", msm_demo),
+                      ("serving", serving)):
+        t0 = time.perf_counter()
+        mod.main()
+        torch.cuda.synchronize()
+        phase("examples", f"{name}.main() on the card: its checks pass, "
+              f"{time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -25,6 +25,14 @@ def test_constants_match_jax_package():
     interop.check_constants(jc)
 
 
+def test_f9_fold_constants_match_jax_package():
+    """The f32x29 fold-constant function gives the JAX package's limbs (its
+    arrays are held equal by ``check_constants``)."""
+    for c in (tc.FOLD_C_P, tc.FOLD_C_R, tc.DELTA_R, 1, (1 << 135) - 1):
+        assert np.array_equal(tc.fold_limbs_f9(c), jc.fold_limbs_f9(c))
+    assert tc.fold_limbs_f9(1).dtype == np.int32
+
+
 def test_check_constants_detects_a_difference():
     ns = types.SimpleNamespace(**{k: getattr(jc, k) for k in dir(jc)
                                   if not k.startswith("_")})
@@ -68,6 +76,48 @@ def test_oracle_is_the_jax_package_file():
         assert to.montgomery_u_to_edwards_y(u) == jo.montgomery_u_to_edwards_y(u)
     raw = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
     assert to.edwards_decompress(raw) == jo.edwards_decompress(raw)
+    _same_scalar_and_helper_functions(rng)
+
+
+def _same_scalar_and_helper_functions(rng):
+    """The oracle's scalar arithmetic, codecs, recodings and point helpers
+    give the same answers, and raise alike, in both files."""
+    a, b, k = (int.from_bytes(rng.bytes(32), "little") % jo.R for _ in range(3))
+    x = int.from_bytes(rng.bytes(32), "little") % jo.P
+    for name in ("sadd", "ssub", "smul"):
+        assert getattr(to, name)(a, b) == getattr(jo, name)(a, b), name
+    for name in ("ssquare", "sneg", "shalf", "sinv", "scalar_to_bytes",
+                 "scalar_bits", "compute_naf"):
+        assert getattr(to, name)(a) == getattr(jo, name)(a), name
+    assert to.spow(a, b) == jo.spow(a, b)
+    assert to.fpow(x, a) == jo.fpow(x, a) and to.fhalf(x) == jo.fhalf(x)
+    assert to.int_to_limbs52(x) == jo.int_to_limbs52(x)
+    assert to.scalar_bits(k, 250) == jo.scalar_bits(k, 250)
+    for width in (2, 5, 8):
+        assert to.compute_window_naf(k, width) == jo.compute_window_naf(k, width)
+    wide = bytes(rng.integers(0, 256, 64, dtype=np.uint8))
+    assert to.scalar_from_bytes_wide(wide) == jo.scalar_from_bytes_wide(wide)
+    assert to.fe_from_bytes_raw(wide[:32]) == jo.fe_from_bytes_raw(wide[:32])
+    enc = to.scalar_to_bytes(k)
+    assert to.scalar_from_bytes(enc) == jo.scalar_from_bytes(enc) == k
+    for mod in (to, jo):
+        with pytest.raises(ValueError):
+            mod.scalar_from_bytes((jo.R + 1).to_bytes(32, "little"))
+        with pytest.raises(ZeroDivisionError):
+            mod.sinv(0)
+        with pytest.raises(ValueError):
+            mod.compute_naf(1 << 255)
+    p = to.scalar_mul(to.BASEPOINT, a)
+    q = to.scalar_mul(to.BASEPOINT, b)
+    assert to.ltr_bin_mul(p, k) == jo.ltr_bin_mul(p, k)
+    assert to.mul_by_cofactor(p) == jo.mul_by_cofactor(p)
+    assert to.point_sub(p, q) == jo.point_sub(p, q)
+    xy = to.point_to_affine(p)
+    assert to.point_from_affine(xy) == jo.point_from_affine(xy)
+    coset = to.point_add(p, to.FOUR_COSET_GROUP[2])
+    for r in (q, coset):
+        assert to.ristretto_eq(p, r) == jo.ristretto_eq(p, r)
+    assert to.ristretto_eq(p, coset) and not to.ristretto_eq(p, q)
 
 
 def test_import_leaves_jax_out():
@@ -77,7 +127,11 @@ def test_import_leaves_jax_out():
             "zerocaf_tpu_torch.parallel.checkpoint, "
             "zerocaf_tpu_torch.serving, zerocaf_tpu_torch.models.edwards, "
             "zerocaf_tpu_torch.models.montgomery, zerocaf_tpu_torch.traits, "
-            "zerocaf_tpu_torch.recode; "
+            "zerocaf_tpu_torch.recode, zerocaf_tpu_torch.entry, "
+            "zerocaf_tpu_torch.utils.profiling, "
+            "zerocaf_tpu_torch.examples.basic_ops, "
+            "zerocaf_tpu_torch.examples.msm_demo, "
+            "zerocaf_tpu_torch.examples.serving; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'zerocaf_tpu')]; "
             "assert not bad, bad")

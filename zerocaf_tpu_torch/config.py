@@ -8,7 +8,18 @@ hand-written CUDA kernels and their plain PyTorch versions both rely on.
 ``MeshConfig`` describes the mesh of ranks that sharded MSM runs on.
 
 There is no ``use_pallas`` switch: a kernel wrapper launches its CUDA kernel
-for a CUDA tensor and runs its plain version for a CPU tensor.
+for a CUDA tensor and runs its plain version for a CPU tensor.  The plain
+versions run only on CPU tensors; a switch that ran them on the card would
+hide the kernels.
+
+The limb backend: ``FieldElement`` and ``Scalar`` constructors given no
+``spec`` take the active backend's ``ModSpec`` (``ops/limb.BACKENDS``).
+"i32x22" (the default) is the int32 radix-2^12 layout above, whose products
+are the CUDA kernels on the card; "f32x29" is 29 float32 limbs of radix
+2^9, whose every operation is ordinary PyTorch code on every device, as it
+is plain ``jnp`` in the JAX package.  Point types stay on i32x22 whatever
+backend is active.  ``set_backend``, ``get_backend`` and ``use_backend``
+choose it.
 
 The default device: every public constructor of the port (``from_int``,
 ``zero``, ``random``, ``identity``, ``basepoint`` and the others) places its
@@ -27,9 +38,14 @@ import dataclasses
 import torch
 
 RADIX_BITS: int = 12
-LIMB_MASK: int = (1 << RADIX_BITS) - 1
+RADIX: int = 1 << RADIX_BITS
+LIMB_MASK: int = RADIX - 1
 NUM_LIMBS: int = 22
 FOLD_LIMB: int = 21          # limbs[21:] hold bits >= 252
+FOLD_BITS: int = 252
+# Carry passes that bring int32 columns to loose limbs (each pass: x & mask,
+# x >> 12 added one limb up; after 3 passes limbs are <= 2^12).
+CARRY_PASSES: int = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +57,45 @@ class MeshConfig:
 
     data_axis: str = "data"
     n_devices: int | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """Top-level settings: the mesh, host-side range checks on limb values,
+    and the limb backend of ``FieldElement`` and ``Scalar``."""
+
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    debug_checks: bool = False
+    backend: str = "i32x22"
+
+
+DEFAULT = Config()
+
+BACKEND_NAMES = ("i32x22", "f32x29")
+_ACTIVE_BACKEND = "i32x22"
+
+
+def set_backend(name: str) -> None:
+    """Select the limb backend of new FieldElement and Scalar values."""
+    global _ACTIVE_BACKEND
+    if name not in BACKEND_NAMES:
+        raise ValueError(f"unknown backend {name!r}; registered: {BACKEND_NAMES}")
+    _ACTIVE_BACKEND = name
+
+
+def get_backend() -> str:
+    return _ACTIVE_BACKEND
+
+
+@contextlib.contextmanager
+def use_backend(name: str):
+    """Within the block, new FieldElement and Scalar values use ``name``."""
+    saved = get_backend()
+    set_backend(name)
+    try:
+        yield
+    finally:
+        set_backend(saved)
 
 
 _DEFAULT_DEVICE: torch.device | None = None

@@ -173,7 +173,7 @@ def _new_random_point(generator, shape, draws: int, device):
     once with a random x sign.  Returns ((X, Y, Z, T), ok); ok is False
     where no draw was a square (about 2^-draws of the lanes)."""
     device = resolve_device(device)
-    ys = FieldElement.random(generator, (draws,) + tuple(shape), device).limbs
+    ys = FieldElement.random(generator, (draws,) + tuple(shape), device, _F).limbs
     signs = (random_bytes(generator, (draws,) + tuple(shape), 1, device)[..., 0]
              & 1).to(torch.int32)
     ys2 = _l.square(ys, _F)
@@ -357,7 +357,7 @@ class EdwardsPoint:
         in the prime-order subgroup (the ladder, K3 on CUDA).  For the
         reference's rejection-sampled point, which may lie in any coset,
         use ``new_random_point``."""
-        k = Scalar.random(generator, shape, device)
+        k = Scalar.random(generator, shape, device, _l.SCALAR)
         return cls.basepoint(shape, k.limbs.device) * k
 
     @classmethod

@@ -8,7 +8,8 @@ Each is a fixed-exponent power (``limb.pow_const``, the K2 kernel on CUDA):
     beta = a^((p+3)/8), raw = beta or beta * 6^((p-1)/4) -- bit-identical to
     the reference's raw Tonelli output (docs/DESIGN.md section 4);
   * sqrt_ratio_i: one a^((p-5)/8) with the 4-case contract.
-All take and return semi-reduced [..., 22] limbs.
+All take and return semi-reduced [..., nlimbs] limbs of ``spec``'s backend
+(i32x22 or f32x29); the f32x29 chains are plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -31,13 +32,11 @@ def legendre_is_qr(a: torch.Tensor, spec: ModSpec = FIELD) -> torch.Tensor:
     return limb.eq(sym, limb.one_like(sym), spec)
 
 
-_POS_RANGE_PLUS_1 = limb.int_limbs(C.POS_RANGE + 1)
-
-
 def is_positive(a: torch.Tensor, spec: ModSpec = FIELD) -> torch.Tensor:
     """Decaf non-negativity: canonical value <= (p-1)/2, branch-free
     (canonical plus a lexicographic compare; no branch on the value)."""
-    return ~limb.geq_const(limb.canonical(a, spec), _POS_RANGE_PLUS_1)
+    return ~limb.geq_const(limb.canonical(a, spec),
+                           limb.spec_limbs(C.POS_RANGE + 1, spec))
 
 
 def abs_positive(a: torch.Tensor, spec: ModSpec = FIELD) -> torch.Tensor:
@@ -54,7 +53,7 @@ def sqrt_raw(a: torch.Tensor, spec: ModSpec = FIELD):
     garbage where exists is False; a == 0 gives (True, 0)."""
     beta = limb.pow_const(a, C.EXP_SQRT, spec)
     t_is_one = limb.eq(limb.square(beta, spec), a, spec)
-    c6 = limb.const(C.C6_LIMBS, a.device)
+    c6 = limb.const_int(C.C6, spec, a.device)
     raw = limb.select(t_is_one, beta, limb.mul(beta, c6, spec))
     exists = limb.eq(limb.square(raw, spec), a, spec)
     return exists, raw
@@ -84,7 +83,7 @@ def sqrt_ratio_i(u: torch.Tensor, v: torch.Tensor, spec: ModSpec = FIELD):
     check = limb.mul(v, limb.square(r, spec), spec)
 
     neg_u = limb.neg(u)
-    sqrt_m1 = limb.const(C.SQRT_M1_LIMBS, u.device)
+    sqrt_m1 = limb.const_int(C.SQRT_M1, spec, u.device)
     correct = limb.eq(check, u, spec)
     flipped = limb.eq(check, neg_u, spec)
     flipped_i = limb.eq(check, limb.mul(neg_u, sqrt_m1, spec), spec)

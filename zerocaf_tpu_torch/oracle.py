@@ -68,6 +68,15 @@ def fdiv(a: int, b: int) -> int:
     return fmul(a, finv(b))
 
 
+def fpow(a: int, e: int) -> int:
+    return pow(a, e, P)
+
+
+def fhalf(a: int) -> int:
+    """a/2 (mod p)  (field.rs:317-323)."""
+    return fmul(a, INVERSE_MOD_TWO)
+
+
 def legendre_symbol(a: int) -> int:
     """1 if a is a non-zero square, -1 if not a square, 0 if a == 0."""
     if a % P == 0:
@@ -166,6 +175,47 @@ MONT_A = fmul(2, fdiv(fadd(EDWARDS_A, EDWARDS_D), fsub(EDWARDS_A, EDWARDS_D)))
 MONT_B = fdiv(4, fsub(EDWARDS_A, EDWARDS_D))
 
 # ---------------------------------------------------------------------------
+# Scalar arithmetic mod r
+# ---------------------------------------------------------------------------
+
+
+def sadd(a: int, b: int) -> int:
+    return (a + b) % R
+
+
+def ssub(a: int, b: int) -> int:
+    return (a - b) % R
+
+
+def smul(a: int, b: int) -> int:
+    return (a * b) % R
+
+
+def ssquare(a: int) -> int:
+    return (a * a) % R
+
+
+def sneg(a: int) -> int:
+    return (-a) % R
+
+
+def spow(a: int, e: int) -> int:
+    return pow(a, e, R)
+
+
+def shalf(a: int) -> int:
+    return smul(a, SCALAR_INVERSE_MOD_TWO)
+
+
+def sinv(a: int) -> int:
+    """Scalar inverse (not in the reference API surface; r is prime so Fermat
+    applies).  Provided because MSM-style protocols need it."""
+    if a % R == 0:
+        raise ZeroDivisionError("cannot invert 0")
+    return pow(a, R - 2, R)
+
+
+# ---------------------------------------------------------------------------
 # Byte codecs: canonical 32-byte little-endian
 # ---------------------------------------------------------------------------
 
@@ -179,6 +229,74 @@ def fe_from_bytes(b: bytes) -> int:
     if len(b) != 32:
         raise ValueError(f"expected 32 bytes, got {len(b)}")
     return int.from_bytes(b, "little") % P
+
+
+def fe_from_bytes_raw(b: bytes) -> int:
+    """The raw 256-bit load, pre-reduction (for canonicality checks)."""
+    return int.from_bytes(b, "little")
+
+
+def scalar_to_bytes(a: int) -> bytes:
+    return int(a % R).to_bytes(32, "little")
+
+
+def scalar_from_bytes(b: bytes) -> int:
+    """Canonical load; reference *asserts* s < r (scalar.rs:445-467)."""
+    v = int.from_bytes(b, "little")
+    if v >= R:
+        raise ValueError("non-canonical scalar encoding")
+    return v
+
+
+def scalar_from_bytes_wide(b: bytes) -> int:
+    """512-bit reduction mod r.  Reference leaves this unimplemented
+    (scalar.rs:470-474); we provide it."""
+    assert len(b) == 64
+    return int.from_bytes(b, "little") % R
+
+
+def scalar_bits(k: int, n: int = 256) -> list[int]:
+    """LSB-first bit vector (scalar.rs:352-366)."""
+    return [(k >> i) & 1 for i in range(n)]
+
+
+def compute_naf(k: int, n: int = 256) -> list[int]:
+    """Non-adjacent form, LSB-first (scalar.rs:370-389).
+
+    NAF(k) needs up to bitlen(k)+1 digits (the recoding can carry one bit
+    past the MSB), so k must satisfy k < 2^(n-1); larger inputs raise
+    instead of silently truncating (VERDICT r2 item 7)."""
+    if not 0 <= k < (1 << (n - 1)):
+        raise ValueError(f"compute_naf: k needs {k.bit_length() + 1} digits > n={n}")
+    res = [0] * n
+    i = 0
+    while k >= 1:
+        if k & 1:
+            ki = 2 - (k % 4)
+            res[i] = ki
+            k -= ki
+        k >>= 1
+        i += 1
+    return res
+
+
+def compute_window_naf(k: int, width: int, n: int = 256) -> list[int]:
+    """Windowed NAF, LSB-first (scalar.rs:391-415).  As with compute_naf,
+    the recoding may spill one digit past the MSB: require k < 2^(n-1)."""
+    if not 0 <= k < (1 << (n - 1)):
+        raise ValueError(f"compute_window_naf: k needs {k.bit_length() + 1} digits > n={n}")
+    res = [0] * n
+    i = 0
+    while k >= 1:
+        if k & 1:
+            ki = k % (1 << width)
+            if ki >= 1 << (width - 1):
+                ki -= 1 << width
+            res[i] = ki
+            k -= ki
+        k >>= 1
+        i += 1
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +326,10 @@ def point_add(p: ExtPoint, q: ExtPoint) -> ExtPoint:
 def point_neg(p: ExtPoint) -> ExtPoint:
     X, Y, Z, T = p
     return (fneg(X), Y, Z, fneg(T))
+
+
+def point_sub(p: ExtPoint, q: ExtPoint) -> ExtPoint:
+    return point_add(p, point_neg(q))
 
 
 def point_double(p: ExtPoint) -> ExtPoint:
@@ -246,6 +368,24 @@ def scalar_mul(p: ExtPoint, k: int) -> ExtPoint:
     return q
 
 
+def ltr_bin_mul(p: ExtPoint, k: int, nbits: int = 250) -> ExtPoint:
+    """MSB-first fixed-ladder form (edwards.rs:122-134) - the TPU-shaped one.
+
+    NOTE: the reference iterates only 249 bits (edwards.rs:129), silently
+    dropping bit 249 of scalars in [2^249, r); canonical scalars need 250 bits
+    (r < 2^250), so we use 250."""
+    q = IDENTITY
+    for i in reversed(range(nbits)):
+        q = point_double(q)
+        if (k >> i) & 1:
+            q = point_add(q, p)
+    return q
+
+
+def mul_by_cofactor(p: ExtPoint) -> ExtPoint:
+    return scalar_mul(p, 8)
+
+
 def mul_by_pow_2(p: ExtPoint, k: int) -> ExtPoint:
     return scalar_mul(p, 1 << k)
 
@@ -254,6 +394,11 @@ def point_to_affine(p: ExtPoint) -> tuple[int, int]:
     X, Y, Z, _ = p
     zi = finv(Z)
     return (fmul(X, zi), fmul(Y, zi))
+
+
+def point_from_affine(xy: tuple[int, int]) -> ExtPoint:
+    x, y = xy
+    return (x, y, 1, fmul(x, y))
 
 
 def find_xx(y: int) -> int:
@@ -386,6 +531,14 @@ def ristretto_decompress(b: bytes) -> ExtPoint | None:
     return (x, y, 1, t)
 
 
+def ristretto_eq(p: ExtPoint, q: ExtPoint) -> bool:
+    """Coset-aware equality: X1*Y2 == Y1*X2 or X1*X2 == Y1*Y2
+    (ristretto.rs:166-176)."""
+    X1, Y1, _, _ = p
+    X2, Y2, _, _ = q
+    return fmul(X1, Y2) == fmul(Y1, X2) or fmul(X1, X2) == fmul(Y1, Y2)
+
+
 def elligator_ristretto_flavor(r0: int) -> ExtPoint:
     """The Ristretto Elligator map."""
     d = EDWARDS_D
@@ -451,3 +604,7 @@ def limbs_to_int(limbs, w: int = RADIX_BITS) -> int:
 
 def limbs52_to_int(limbs) -> int:
     return limbs_to_int(limbs, w=52)
+
+def int_to_limbs52(a: int) -> list[int]:
+    """The reference's 5x52-bit layout (field.rs:29-32), for verification."""
+    return int_to_limbs(a, n=5, w=52)

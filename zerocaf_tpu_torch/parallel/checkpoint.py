@@ -20,6 +20,7 @@ import tempfile
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..models.edwards import EdwardsPoint
 from ..ops import limb as _l
 from ..ops.limb import FIELD as _F
@@ -56,9 +57,12 @@ def save(path: str, partial: EdwardsPoint, next_block: int,
             os.unlink(tmp)
 
 
-def load(path: str, device="cpu") -> tuple[EdwardsPoint, int, dict] | None:
+def load(path: str, device=None) -> tuple[EdwardsPoint, int, dict] | None:
     """(partial on ``device``, next_block, meta), or None if there is no
-    checkpoint at path."""
+    checkpoint at path.  device=None is ``config.default_device()``: the
+    first CUDA card unless the caller set another, as for every
+    constructor."""
+    device = resolve_device(device)
     if not os.path.exists(path):
         return None
     with open(path, "rb") as f:

@@ -44,6 +44,17 @@ from ..ops.kernels import msm_kernels as _mk
 from ..scalar import Scalar
 from .comm import Communicator
 
+# Default window width of the scan route's body (``_msm_local``): 32
+# windows, 256 buckets (129 signed).
+DEFAULT_C = 8
+
+# Lane-fold rounds after each dense launch by default: 0 folds none, and the
+# lane reduction (K5) takes every round.  The JAX package measured its
+# out-of-kernel reduce faster than the in-kernel fold on the TPU and kept
+# the fold for sweeps; the port keeps that default (fold=1..7 stays
+# available to the dense routes).
+DENSE_FOLD = 0
+
 # Window-group size of K7: k windows' tables per thread.  It sets how often
 # the points are re-read (once per group) against the threads' table memory;
 # per-point work does not depend on it.
@@ -302,8 +313,11 @@ def _msm_local_tables(pt, windows, c: int, nwin: int, signed: bool):
     return tuple(torch.stack([pw[i] for pw in per_w]) for i in range(4))
 
 
-def _msm_local(pt, windows, c: int, nwin: int, signed: bool = True):
+def _msm_local(pt, windows, c: int = DEFAULT_C, nwin: int | None = None,
+               signed: bool = True):
     """Scan-route Pippenger over one shard -> one point (tuple of [22])."""
+    if nwin is None:
+        nwin = nwin_for(c)
     nb = (1 << (c - 1)) + 1 if signed else 1 << c
     return _combine_windows(_msm_local_tables(pt, windows, c, nwin, signed),
                             c, nb)
@@ -356,7 +370,7 @@ def dense_digits(windows, c: int, nwin: int, k: int = DENSE_K):
 
 
 def _tables_by_group(pt, windows, c: int, nwin: int, k: int, accum,
-                     fold: int = 0):
+                     fold: int = DENSE_FOLD):
     """Bucket tables one group of k windows at a time: accum(pts, digits
     [k, N], nb) launches the group's per-lane tables at the lane count its
     wrapper picks (the windows past nwin all zero), whose lane reduction
@@ -380,7 +394,7 @@ def _msm_dense_tables_paired(pt, windows, c: int, nwin: int):
 
 
 def _msm_dense_tables_k(pt, windows, c: int, nwin: int, k: int = DENSE_K,
-                        fold: int = 0):
+                        fold: int = DENSE_FOLD):
     """Bucket tables group by group: K9 once per group of k windows, with
     ``fold`` lane rounds after each launch."""
     def accum(pts, d, nb):
@@ -389,7 +403,7 @@ def _msm_dense_tables_k(pt, windows, c: int, nwin: int, k: int = DENSE_K,
 
 
 def _msm_dense_tables_all(pt, windows, c: int, nwin: int, k: int = DENSE_K,
-                          fold: int = 0):
+                          fold: int = DENSE_FOLD):
     """Bucket tables of every window: K7 over all window groups in one
     launch, ``fold`` lane rounds, then the rest of the lane reduction over
     all windows at once.  Returns a tuple of [nwin, nb, 22]."""
@@ -401,7 +415,7 @@ def _msm_dense_tables_all(pt, windows, c: int, nwin: int, k: int = DENSE_K,
 
 
 def _msm_dense(pt, windows, c: int, nwin: int, k: int = DENSE_K,
-               fold: int = 0, fused_combine: bool = True,
+               fold: int = DENSE_FOLD, fused_combine: bool = True,
                single_call: bool = True):
     """Dense MSM body: bucket tables, then the window combine.  k >= 3
     takes groups of k windows, all groups in one K7 launch

@@ -1,5 +1,8 @@
 """Scalar recodings on the host (zerocaf_tpu/native.py counterpart): NAF,
-width-w NAF, bits and unsigned windows of little-endian scalar bytes.
+width-w NAF, bits and unsigned windows of little-endian scalar bytes, and
+the radix-2^12 limb codecs.  The JAX package loads a C++ library for these
+when it is built and has ``available()`` to say so; the port has no native
+library to load, so it has no ``available()``: this numpy is all of it.
 
 Recoding is sequential in the bits of one scalar and parallel over scalars,
 so each function is numpy over the batch axis: one pass per bit position,
@@ -104,3 +107,23 @@ def windows(scalars_le, c: int, nwin: int) -> np.ndarray:
     groups = _bit_matrix(b, nwin * c).reshape(b.shape[0], nwin, c)
     out = (groups << np.arange(c, dtype=np.int32)).sum(-1).astype(np.int32)
     return out.reshape(*np.shape(scalars_le)[:-1], nwin)
+
+
+def bytes_to_limbs(bytes_le) -> np.ndarray:
+    """[..., 32] LE bytes -> [..., 22] int32 radix-2^12 limbs of the raw
+    256-bit value (limb 21 holds bits 252..255).  Radix 2^12 is three
+    nibbles: limb k = nib[3k] + 16 nib[3k+1] + 256 nib[3k+2]."""
+    b = _as_scalar_bytes(bytes_le)
+    nib = np.stack([b & 15, b >> 4], axis=-1).reshape(b.shape[0], 64)
+    g = np.pad(nib, [(0, 0), (0, 2)]).reshape(b.shape[0], 22, 3).astype(np.int32)
+    out = g[..., 0] | (g[..., 1] << 4) | (g[..., 2] << 8)
+    return out.reshape(*np.shape(bytes_le)[:-1], 22)
+
+
+def limbs_to_bytes(limbs) -> np.ndarray:
+    """[..., 22] canonical int32 limbs -> [..., 32] uint8 LE: the low 12
+    bits of each limb, bits past 255 dropped."""
+    x = np.ascontiguousarray(limbs, dtype=np.int32).reshape(-1, 22) & 0xFFF
+    nib = np.stack([x & 15, (x >> 4) & 15, x >> 8], axis=-1).reshape(-1, 66)[:, :64]
+    out = (nib[:, 0::2] | (nib[:, 1::2] << 4)).astype(np.uint8)
+    return out.reshape(*np.shape(limbs)[:-1], 32)

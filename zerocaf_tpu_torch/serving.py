@@ -23,6 +23,7 @@ from .models import ristretto as _ri
 from .models.edwards import EdwardsPoint
 from .parallel.msm import _use_dense, auto_c, auto_c_dense
 from .parallel.msm import msm as _msm
+from .ops.limb import SCALAR as _S
 from .scalar import Scalar
 
 
@@ -91,7 +92,7 @@ class Engine:
         oblivious at cache-line granularity, as in the reference and the
         JAX package (docs/CONSTANT_TIME.md)."""
         self._served.add("keygen")
-        sk = Scalar.from_bytes_wide(self._wire(seed64, 64))
+        sk = Scalar.from_bytes_wide(self._wire(seed64, 64), _S)
         pk = _ri._compress(EdwardsPoint.basepoint_mul(sk)._tuple())
         return sk.to_bytes(), pk
 
@@ -106,7 +107,7 @@ class Engine:
         gather.  Non-canonical secrets are reduced mod r, as in the JAX
         package."""
         self._served.add("dh")
-        s, _ = Scalar.from_bytes(self._wire(sk32, 32))
+        s, _ = Scalar.from_bytes(self._wire(sk32, 32), _S)
         p, ok = _ri._decompress(self._wire(peer32, 32))
         q = EdwardsPoint(*p).mul_windowed(s)
         return _ri._compress(q._tuple()), ok
@@ -130,7 +131,7 @@ class Engine:
         of ``parallel.msm.msm``: by default the dense kernels (K7, K5, K8)
         at c = 6."""
         pts, ok = _ri._decompress(self._wire(points_wire, 32))
-        s, _ = Scalar.from_bytes(self._wire(scalar32, 32))
+        s, _ = Scalar.from_bytes(self._wire(scalar32, 32), _S)
         if _use_dense(self.batch, c, dense):
             c, dense = (c if c is not None else auto_c_dense(self.batch)), True
             self._served.add(f"msm_dense_c{c}")
