@@ -132,7 +132,17 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      a Chrome trace whose kernel events include k_ladder and k_pow;
  30. python -m zerocaf_tpu_torch.entry (the forward step and
      dryrun_multichip(4): four gloo ranks sharing the card, both ok lines)
-     and each example's main() on the card.
+     and each example's main() on the card;
+ 31. the tools, each in processes of its own: (a) POD_AUTO_INIT=1
+     torchrun --nproc-per-node 1 -m zerocaf_tpu_torch.tools.pod_msm
+     --log2n 20 --dense --shard-combine --iters 5 (one NCCL rank, the pod
+     configuration), its median beside phase 23's and its launches (K6,
+     K9, K5, K8, K1, K2); (b) pod_msm on 4 gloo ranks sharing the card,
+     started with --coordinator/--num-processes/--process-id: meshes 1, 2
+     and 4, bit exact across them, each rank's launches and peak memory;
+     both encodings equal the oracle's (sum k_i s_i mod r) B for
+     make_inputs' scalars; (c) tools.dist_smoke on 2 ranks on the card,
+     both DIST_SMOKE_OK lines.
 Every kernel computes on the 8 x 32-bit core and writes canonical limbs;
 each is held against its plain version's canonical limbs.  K1's launches
 are counted on each main path: ECDH (phases 5-6), Engine.msm (phase 11)
@@ -817,6 +827,7 @@ def main() -> None:
     dryrun_examples_phase(card)
     phase("backend, entry, dry run and examples",
           f"{time.perf_counter() - t_new:.1f} s")
+    tools_phase(dev, card, msm_ctx["pod_ms"])
 
     replaces = {"mul_tiled": (SOURCE, TPU_KERNELS, 1133),
                 "pow_tiled": (SOURCE, TPU_KERNELS, 1030),
@@ -1495,6 +1506,7 @@ def sharded_phases(dev, card, ctx) -> dict[str, int]:
                 or not launched["to_field32"]):
             raise AssertionError(f"msm_sharded (1 rank, pod) launches: {launched}")
         t = call_ms(lambda: msm_sharded(pts, s, mesh, **pod), MSM_RATE_CALLS)
+        ctx["pod_ms"] = t[len(t) // 2]
         phase("msm_sharded 1 rank", f"{MSM_BATCH} points, NCCL on {mesh.device}, "
               f"dense + shard_combine, c {MSM_C}: equals the oracle and "
               f"Engine.msm; launches {json.dumps(launched)}; {card}: median "
@@ -2194,6 +2206,134 @@ def dryrun_examples_phase(card) -> None:
         torch.cuda.synchronize()
         phase("examples", f"{name}.main() on the card: its checks pass, "
               f"{time.perf_counter() - t0:.1f} s")
+
+
+def run_ranks(cmds, env, timeout: int) -> list[str]:
+    """Run the commands at once from the repo's root, each a process, and
+    return their standard outputs; raises if one fails."""
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, *cmd], cwd=here, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode:
+            raise AssertionError(f"{' '.join(cmd)}: rc {p.returncode}\n"
+                                 f"{out[-2000:]}\n{err[-4000:]}")
+    return [out for out, _ in outs]
+
+
+def pod_lines(out: str) -> list[dict]:
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+
+
+def tools_phase(dev, card, pod_ms: float) -> None:
+    """Phase 31: the tools of zerocaf_tpu_torch.tools, each in processes of
+    its own.  (a) pod_msm under torchrun on one NCCL rank at 2^20 points,
+    the pod configuration (phase 23's call), (b) pod_msm on 4 gloo ranks
+    sharing the card, meshes 1, 2 and 4, (c) dist_smoke on 2 ranks.  The encodings must
+    equal the oracle's (sum k_i s_i mod r) B, rebuilt from make_inputs'
+    scalars here."""
+    import socket
+
+    from zerocaf_tpu_torch import oracle as o
+    from zerocaf_tpu_torch.tools import pod_msm
+
+    def free_port():
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            return sk.getsockname()[1]
+
+    t_phase = time.perf_counter()
+    k, s = pod_msm.input_scalars(MSM_BATCH, pod_msm.SEED, dev)
+    kb, sb = k.to_bytes().cpu().numpy().tobytes(), s.to_bytes().cpu().numpy().tobytes()
+    total = sum(int.from_bytes(kb[i:i + 32], "little")
+                * int.from_bytes(sb[i:i + 32], "little")
+                for i in range(0, len(kb), 32)) % o.R
+    want = o.ristretto_compress(o.scalar_mul(o.BASEPOINT, total)).hex()
+    del k, s
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=os.environ.get(
+        "CUDA_VISIBLE_DEVICES", "0").split(",")[0])
+    pod = ["-m", "zerocaf_tpu_torch.tools.pod_msm", "--log2n",
+           str(MSM_BATCH.bit_length() - 1), "--dense", "--shard-combine"]
+    path = ("fixed_base_mul_stepped", "bucket_accum_k", "padd_tiled",
+            "combine_tables", "to_field32", "mul_tiled", "pow_tiled")
+
+    # (a) one rank over NCCL, started by torchrun
+    t0 = time.perf_counter()
+    out, = run_ranks([["-m", "torch.distributed.run", "--standalone",
+                       "--nproc-per-node", "1", *pod, "--iters", "5"]],
+                     dict(env, POD_AUTO_INIT="1"), 600)
+    lines = pod_lines(out)
+    head, mesh1, enc, rank0 = lines
+    if (head != {"n": MSM_BATCH, "c": MSM_C, "n_devices": 1, "n_processes": 1,
+                 "platform": "cuda"} or mesh1["mesh"] != 1
+            or enc != {"bit_exact_across_meshes": True, "encoding": want}
+            or not all(rank0["launches"].get(name) for name in path)
+            or rank0["launches"].get("bucket_accum_all")):
+        raise AssertionError(f"pod_msm under torchrun: {lines}")
+    phase("tools", f"(a) torchrun pod_msm, 1 NCCL rank, {MSM_BATCH} points, "
+          f"dense + shard_combine: equals the oracle; {card}: median "
+          f"{mesh1['wall_s'] * 1e3:.1f} ms over 5 calls (phase 23, the same "
+          f"call in this process: {pod_ms:.1f} ms); launches "
+          f"{json.dumps(rank0['launches'])}; peak memory "
+          f"{rank0['peak_bytes'] / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) four gloo ranks sharing the card
+    t0 = time.perf_counter()
+    port = free_port()
+    outs = run_ranks([[*pod, "--iters", "3", "--backend", "gloo",
+                       "--coordinator", f"localhost:{port}", "--num-processes",
+                       "4", "--process-id", str(r)] for r in range(4)], env, 600)
+    lines = pod_lines(outs[0])
+    meshes = [ln for ln in lines if "wall_s" in ln]
+    scaling = [ln for ln in lines if "scaling_efficiency" in ln]
+    ranks = [ln for ln in lines if "rank" in ln]
+    if (lines[0]["n_devices"] != 4 or [m["mesh"] for m in meshes] != [1, 2, 4]
+            or [m["mesh"] for m in scaling] != [2, 4]
+            or any(m["note"] != pod_msm.SHARED for m in scaling)
+            or {"bit_exact_across_meshes": True, "encoding": want} not in lines
+            or [r["rank"] for r in ranks] != [0, 1, 2, 3]
+            or not all(r["launches"].get("bucket_accum_k")
+                       and r["launches"].get("combine_tables") for r in ranks)
+            or any(outs[1:])):
+        raise AssertionError(f"pod_msm on 4 gloo ranks: {lines} {outs[1:]}")
+    for m, eff in zip(meshes, [None, *scaling]):
+        phase("tools", f"(b) 4 gloo ranks sharing the card ({card}), mesh "
+              f"{m['mesh']}: median {m['wall_s'] * 1e3:.1f} ms over 3 calls, "
+              f"{m['points_per_s']:.0f} points/s"
+              + (f", scaling efficiency {eff['scaling_efficiency']:.3f} "
+                 "(shared card)" if eff else ""))
+    for r in ranks:
+        phase("tools", f"(b) rank {r['rank']}: peak memory "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB, launches "
+              f"{json.dumps(r['launches'])}")
+    phase("tools", f"(b) meshes 1, 2, 4 bit exact and equal to the oracle; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (c) the two-process smoke on the card
+    t0 = time.perf_counter()
+    port = free_port()
+    outs = run_ranks([["-m", "zerocaf_tpu_torch.tools.dist_smoke", str(pid), "2",
+                       str(port)] for pid in range(2)], env, 300)
+    for pid, out in enumerate(outs):
+        if f"DIST_SMOKE_OK pid={pid} nprocs=2 n=16" not in out:
+            raise AssertionError(f"dist_smoke rank {pid}: {out}")
+        phase("tools", f"(c) {out.strip()}")
+    phase("tools", f"(c) dist_smoke on 2 gloo ranks on the card, "
+          f"{time.perf_counter() - t0:.1f} s; phase 31 "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -368,9 +368,11 @@ def test_profiling_timeit_report_and_trace(tmp_path):
     t = profiling.timeit(tl.mul, x, x, tl.FIELD, iters=3, warmup=1)
     assert 0 < t < 10
     rep = profiling.report().splitlines()
-    assert rep[0].startswith("kernel") and len(rep) == 6
+    assert rep[0].startswith("kernel") and len(rep) == 7
+    assert [ln.split()[0] for ln in rep[1:3]] == ["field_mul", "field_add"]
     assert profiling.OPS_8X32 == (104, 76)
     assert profiling.FIELD_MUL.int_ops == 104 and profiling.FIELD_MUL.bytes_moved == 264
+    assert (profiling.FIELD_ADD.int_ops, profiling.FIELD_ADD.bytes_moved) == (0, 264)
     with profiling.trace(str(tmp_path)) as prof:
         tl.mul(x, x, tl.FIELD)
     assert Path(prof.trace_path).parent == tmp_path and Path(prof.trace_path).stat().st_size

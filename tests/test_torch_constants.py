@@ -131,7 +131,9 @@ def test_import_leaves_jax_out():
             "zerocaf_tpu_torch.utils.profiling, "
             "zerocaf_tpu_torch.examples.basic_ops, "
             "zerocaf_tpu_torch.examples.msm_demo, "
-            "zerocaf_tpu_torch.examples.serving; "
+            "zerocaf_tpu_torch.examples.serving, "
+            "zerocaf_tpu_torch.tools.pod_msm, "
+            "zerocaf_tpu_torch.tools.dist_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'zerocaf_tpu')]; "
             "assert not bad, bad")

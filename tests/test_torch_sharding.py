@@ -5,7 +5,7 @@
 starts three groups at once -- 4 and 2 gloo ranks, and 1 rank with no
 process group -- each rank a ``tests/torch_gloo_worker.py`` process on one
 CPU thread that runs every configuration over its block of the same 16
-points.  While they run, this process computes the JAX package's
+points, then one configuration on each sub-mesh of ranks 0..d-1.  While they run, this process computes the JAX package's
 ``msm_sharded`` on a 4-device mesh of its virtual CPU devices (as
 tests/test_sharding.py runs it).  That takes 30-50 s of XLA compile for
 each configuration on a CPU, so the JAX package is held against the port
@@ -70,6 +70,9 @@ CONFIGS = {
     "unsigned_shard_combine_c4": dict(c=4, signed=False, shard_combine=True),
 }
 JAX_CONFIG = "unsigned_c4"
+# (world, d): the sub-meshes of ranks 0..d-1 that the workers build
+SUBMESHES = [(4, 1), (4, 2), (2, 1)]
+SUBMESH_CONFIG = "dense_c4"
 
 
 def _free_port() -> int:
@@ -121,7 +124,8 @@ def sharded(inputs, tmp_path_factory):
     spec = tmp / "spec.json"
     spec.write_text(json.dumps({"points": inputs["coords"].tolist(),
                                 "scalars": inputs["scalars"].tolist(),
-                                "configs": CONFIGS}))
+                                "configs": CONFIGS,
+                                "submesh_config": SUBMESH_CONFIG}))
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     procs = {}
     for world in WORLDS:
@@ -176,6 +180,29 @@ def test_collectives(sharded, world):
         assert got["all_gather"] == x
         assert got["all_gather_tiled"] == sum(x, [])
         assert got["ppermute"] == x[(rank - 1) % world]
+
+
+@pytest.mark.parametrize("world,d", SUBMESHES)
+def test_sub_mesh(inputs, sharded, world, d):
+    """make_mesh(MeshConfig(n_devices=d)) in a gloo world: ranks 0..d-1 get
+    a mesh of size d (a group of its own for d > 1, none for d = 1), whose
+    msm_sharded over d blocks equals the oracle and whose ring ppermute
+    reaches the right peers; ranks d and up get None."""
+    for rank in range(world):
+        got = sharded["results"][world, rank]["submesh"][str(d)]
+        if rank >= d:
+            assert got is None
+            continue
+        assert (got["size"], got["rank"], got["grouped"]) == (d, rank, d > 1)
+        assert bytes.fromhex(got["msm"]) == inputs["want"]
+        assert got["ppermute"] == [10 * ((rank - 1) % d) + i for i in range(3)]
+
+
+def test_jax_make_mesh_takes_the_first_devices():
+    """The JAX package's sub-mesh, which the port's mirrors (no compile)."""
+    mesh = jmake_mesh(JMeshConfig(n_devices=2))
+    assert mesh.devices.shape == (2,)
+    assert list(mesh.devices) == jax.devices()[:2]
 
 
 def _port_inputs(inputs):

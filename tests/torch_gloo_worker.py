@@ -7,7 +7,9 @@ Joins a gloo group of WORLD ranks at localhost:PORT (no group at WORLD 1),
 takes this rank's block of the global points and scalars in SPEC (limbs
 as nested lists), runs ``msm_sharded`` for each configuration in SPEC, and
 writes the canonical encodings (hex) with the results of a few
-collectives and error checks to OUT.  Runs on one CPU thread, so that
+collectives and error checks to OUT; then the same on every sub-mesh of
+ranks 0..d-1 (d below WORLD, dividing N), which ranks d and up are not
+part of.  Runs on one CPU thread, so that
 several ranks share a small machine, with the port's default device set to
 the CPU.
 """
@@ -60,6 +62,27 @@ def main(rank: int, world: int, port: int, spec_path: str, out_path: str) -> Non
     out["all_gather_tiled"] = comm.all_gather(x, tiled=True).tolist()
     ring = [(r, (r + 1) % world) for r in range(world)]
     out["ppermute"] = comm.ppermute(x, ring).tolist()
+
+    # Sub-meshes of ranks 0..d-1 (every rank calls make_mesh; the others
+    # get None): an MSM of the same points over d blocks, and a ring.
+    out["submesh"] = {}
+    for d in range(1, world):
+        if len(coords) % d:
+            continue
+        sub = make_mesh(MeshConfig(n_devices=d), devices="cpu")
+        if sub is None:
+            out["submesh"][d] = None
+            continue
+        sub_shard = batch_sharding(sub)
+        total = msm_sharded(EdwardsPoint(*(sub_shard(coords[:, j]) for j in range(4))),
+                            Scalar(sub_shard(torch.tensor(spec["scalars"],
+                                                          dtype=torch.int32))),
+                            sub, **spec["configs"][spec["submesh_config"]])
+        sub_ring = [(r, (r + 1) % d) for r in range(d)]
+        out["submesh"][d] = {
+            "size": sub.size, "rank": sub.rank, "grouped": sub.group is not None,
+            "msm": ri._compress(total._tuple()).numpy().tobytes().hex(),
+            "ppermute": Communicator(sub).ppermute(x, sub_ring).tolist()}
     if mesh.group is not None:
         dist.barrier()
         dist.destroy_process_group()

@@ -52,8 +52,10 @@ CARRY_PASSES: int = 3
 class MeshConfig:
     """Layout of the mesh that sharded workloads (MSM) run on: one axis,
     ``data_axis``, that splits the point and scalar batch over the ranks of
-    ``torch.distributed``.  n_devices=None takes every rank; a number must
-    equal the world size (``parallel.mesh.make_mesh``)."""
+    ``torch.distributed``.  n_devices=None takes every rank; a number d,
+    at most the world size, takes ranks 0..d-1 (``parallel.mesh.make_mesh``
+    gives the others None).  A d above the world size raises where the JAX
+    package would take the devices there are."""
 
     data_axis: str = "data"
     n_devices: int | None = None

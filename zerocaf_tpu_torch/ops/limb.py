@@ -307,6 +307,14 @@ def reduce_to_semi_cascade(cols: torch.Tensor, spec: ModSpec,
     return x
 
 
+def reduce_to_semi(cols: torch.Tensor, spec: ModSpec) -> torch.Tensor:
+    """Product or byte columns -> semi-reduced limbs, |value| < 2^253: the
+    cascade with the micro-fold of the bits >= 252 (at limb FOLD_LIMB).
+    The JAX package's reduce_to_semi folds the high limbs by one int8
+    matrix product instead, the TPU's MXU route to the same values."""
+    return reduce_to_semi_cascade(cols, spec, micro_fold=True)
+
+
 # ---------------------------------------------------------------------------
 # Semi-reduced ring ops
 # ---------------------------------------------------------------------------
@@ -319,7 +327,7 @@ def mul(a: torch.Tensor, b: torch.Tensor, spec: ModSpec) -> torch.Tensor:
     from .kernels import field_kernels as fk
 
     if spec.kernel_id is None:
-        return reduce_to_semi_cascade(school(a, b), spec, micro_fold=True)
+        return reduce_to_semi(school(a, b), spec)
     a, b = torch.broadcast_tensors(a, b)
     return fk.mul_tiled(a.contiguous(), b.contiguous(), spec)
 
@@ -327,7 +335,7 @@ def mul(a: torch.Tensor, b: torch.Tensor, spec: ModSpec) -> torch.Tensor:
 def square(a: torch.Tensor, spec: ModSpec) -> torch.Tensor:
     """a^2 (mod m); the operand must be semi-reduced."""
     if spec.kernel_id is None:
-        return reduce_to_semi_cascade(school_square(a), spec, micro_fold=True)
+        return reduce_to_semi(school_square(a), spec)
     a = a.contiguous()
     return mul(a, a, spec)
 
@@ -491,9 +499,8 @@ def from_bytes(b: torch.Tensor, spec: ModSpec) -> torch.Tensor:
     """Decode 32 LE bytes to a semi-reduced element (the raw 256-bit value
     reduced mod m)."""
     if spec.kernel_id is None:
-        return reduce_to_semi_cascade(bytes_to_limbs_gen(b, spec), spec,
-                                      micro_fold=True)
-    return reduce_to_semi_cascade(bytes_to_limbs(b), spec, micro_fold=True)
+        return reduce_to_semi(bytes_to_limbs_gen(b, spec), spec)
+    return reduce_to_semi(bytes_to_limbs(b), spec)
 
 
 def to_bytes(x: torch.Tensor, spec: ModSpec) -> torch.Tensor:

@@ -76,6 +76,8 @@ class Communicator:
             return x.clone() if src == [me] else torch.zeros_like(x)
         y = self._wire(x)
         out = torch.zeros_like(y)
+        # P2POp takes global ranks as peers.  A mesh is ranks 0..size-1 of
+        # the world (make_mesh), so its group ranks are the global ones.
         ops = [dist.P2POp(dist.isend, y, d, group=self.mesh.group) for d in dst]
         ops += [dist.P2POp(dist.irecv, out, s, group=self.mesh.group) for s in src]
         if ops:

@@ -5,7 +5,9 @@ The JAX package's mesh is one program over many devices; here it is one
 process per rank under ``torch.distributed``, each on one device.  A 1-D
 ``data`` axis splits the point and scalar batch of MSM over the ranks.
 With no process group initialised the mesh has one rank and the
-collectives of ``parallel/comm.py`` are local.  Nothing is read from the
+collectives of ``parallel/comm.py`` are local.  A mesh may also span only
+the first ranks of the group (a sub-mesh, as the JAX package's mesh may
+take only the first devices).  Nothing is read from the
 environment beyond ``torch.distributed``'s own state: the caller passes
 the rendezvous to ``initialize_distributed`` and, where it is not
 ``cuda:<local rank>``, the device to ``make_mesh``.
@@ -42,21 +44,33 @@ def _device(device) -> torch.device:
     return dev
 
 
-def make_mesh(cfg: MeshConfig | None = None, devices=None) -> Mesh:
-    """The 1-D mesh over every rank of the initialised process group (the
-    world), or a one-rank mesh when none is initialised.  cfg.n_devices,
-    if given, must equal the number of ranks.  This rank computes on
-    ``devices`` (one device, for this rank) if given, else on
-    ``cuda:<local rank>`` (the rank modulo the visible cards); without CUDA
-    a device must be given."""
+def make_mesh(cfg: MeshConfig | None = None, devices=None) -> Mesh | None:
+    """The 1-D mesh over the first cfg.n_devices ranks of the initialised
+    process group (the world), or a one-rank mesh when none is
+    initialised.  cfg.n_devices=None takes every rank.  A smaller d gives
+    ranks 0..d-1 a mesh of size d over the group ``dist.new_group(range(d))``
+    (none at d = 1: a one-rank mesh whose collectives are local), and every
+    other rank None: it takes no part in that mesh's collectives.  Creating
+    a group is collective over the world, so every rank calls make_mesh
+    with the same cfg, in the same order.  A d larger than the world
+    raises.  This rank computes on ``devices`` (one device, for this rank)
+    if given, else on ``cuda:<rank mod visible cards>``; without CUDA a
+    device must be given."""
     cfg = cfg or MeshConfig()
-    if dist.is_available() and dist.is_initialized():
-        group, size, rank = dist.group.WORLD, dist.get_world_size(), dist.get_rank()
-    else:
-        group, size, rank = None, 1, 0
-    if cfg.n_devices is not None and cfg.n_devices != size:
+    grouped = dist.is_available() and dist.is_initialized()
+    world, rank = (dist.get_world_size(), dist.get_rank()) if grouped else (1, 0)
+    size = world if cfg.n_devices is None else cfg.n_devices
+    if not 1 <= size <= world:
         raise ValueError(f"make_mesh: n_devices={cfg.n_devices}, but the "
-                         f"process group has {size} ranks")
+                         f"process group has {world} ranks")
+    if grouped and size == world:
+        group = dist.group.WORLD
+    elif size == 1:
+        group = None
+    else:
+        group = dist.new_group(list(range(size)))
+    if rank >= size:
+        return None
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh() puts each rank on a CUDA card and "

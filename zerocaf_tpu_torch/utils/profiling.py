@@ -107,6 +107,8 @@ class KernelCost:
 MUL, SQ = OPS_8X32
 # K1: two operands in, one product out.
 FIELD_MUL = KernelCost("field_mul", int_ops=MUL, bytes_moved=3 * LIMB_BYTES)
+# An addition or subtraction: limb adds and carries, no word product.
+FIELD_ADD = KernelCost("field_add", int_ops=0, bytes_moved=3 * LIMB_BYTES)
 FIELD_SQUARE = KernelCost("field_square", int_ops=SQ, bytes_moved=2 * LIMB_BYTES)
 # K5: padd_ext, 10 multiplies; two points in, one out.
 POINT_ADD = KernelCost("point_add", int_ops=10 * MUL, bytes_moved=3 * POINT_BYTES)
@@ -121,7 +123,8 @@ SCALAR_MUL = KernelCost("scalar_mul_ladder",
                         bytes_moved=2 * POINT_BYTES + 4 * 250)
 
 
-def report(costs=(FIELD_MUL, FIELD_SQUARE, POINT_ADD, POINT_DOUBLE, SCALAR_MUL)):
+def report(costs=(FIELD_MUL, FIELD_ADD, FIELD_SQUARE, POINT_ADD, POINT_DOUBLE,
+                  SCALAR_MUL)):
     lines = ["kernel               int_ops/elem  bytes/elem  intensity(op/B)"]
     for c in costs:
         lines.append(f"{c.name:20s} {c.int_ops:12d} {c.bytes_moved:11d} "
