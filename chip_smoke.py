@@ -27,7 +27,10 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      back-to-back wrapper calls (K1's also replayed from a CUDA graph, its
      wrapper's Python being longer than a small kernel: graph_ms) and, for
      K3 and K4, the time their multiplies' SASS would take at the card's
-     issue rate;
+     issue rate; then k_canonical (canonical_tiled) in its five modes
+     modulo p and modulo r at 2^20 and 2^19 semi-reduced lanes, equal to
+     its plain version, with its time over back-to-back wrapper calls and replayed
+     from a CUDA graph, the plain version's time and the byte bound;
   4. vectors: the 16 Ristretto small multiples, the Elligator sage vector
      and [2]B, byte for byte;
   5. ECDH at batch 32768: public keys by the ladder (K3), shared secrets by
@@ -35,7 +38,8 @@ Phases, in order (any failure raises, so the exit code is non-zero):
      other and against the oracle on sampled lanes; one invalid peer lane
      must be rejected;
   6. Engine.hash_to_group at batch 32768, sampled lanes against the oracle;
-  7. launch counts: every kernel must have run during phases 5-6;
+  7. launch counts: every kernel, k_canonical too, must have run during
+     phases 5-6;
   8. rates: dh and hash_to_group ops/s (median of 11 calls on the host
      clock, with the min and max) and ladder mults/s;
   9. K5 against its plain version (canonical limbs) at 2^16 lanes;
@@ -47,8 +51,8 @@ Phases, in order (any failure raises, so the exit code is non-zero):
  11. Engine.msm at batch 2^20, c = 6, the MSM main path: points k'_i B
      made by the ladder (K3) and encoded, seeded canonical scalars; the
      aggregate equals the oracle's; an invalid lane makes ok false; pad_msm
-     of 2^20 - 3 lanes equals the MSM of those lanes.  K5, K7, its prep
-     and K8 must each have launched during these three calls (counts reset
+     of 2^20 - 3 lanes equals the MSM of those lanes.  K5, K7, its prep,
+     K8 and k_canonical must each have launched during these three calls (counts reset
      just before them and read just after);
  12. at 2^14 points the scan route (dense=False) and the dense route give
      the same bytes, equal to the oracle's (launches printed apart);
@@ -189,8 +193,9 @@ SEED = 20261016
 BACKEND_SAMPLE = 64           # lanes of phases 28-29 held against the oracle
 ENTRY_BATCH = 256             # zerocaf_tpu_torch.entry's default batch
 ECDH_KERNELS = ("mul_tiled", "pow_tiled", "scalar_mul_windowed_stepped",
-                "scalar_mul_windowed_signed")
-MSM_KERNELS = ("padd_tiled", "to_field32", "bucket_accum_all", "combine_tables")
+                "scalar_mul_windowed_signed", "canonical_tiled")
+MSM_KERNELS = ("padd_tiled", "to_field32", "bucket_accum_all", "combine_tables",
+               "canonical_tiled")
 KEYGEN_KERNELS = ("mul_tiled", "pow_tiled", "fixed_base_mul_stepped")
 SOURCE = "zerocaf_tpu_torch/csrc/field_kernels.cu"
 MSM_SOURCE = "zerocaf_tpu_torch/csrc/msm_kernels.cu"
@@ -439,7 +444,7 @@ def canonical(point):
     8 x 32-bit core write those; their plain versions leave semi limbs)."""
     from zerocaf_tpu_torch.ops import limb
 
-    return tuple(limb.canonical(c, limb.FIELD) for c in point)
+    return tuple(limb.canonical_plain(c, limb.FIELD) for c in point)
 
 
 def muls(work) -> float:
@@ -576,7 +581,7 @@ def main() -> None:
         return torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
 
     def rand_elems(n, spec):
-        return limb.canonical(limb.from_bytes(rand_bytes((n, 32)), spec), spec)
+        return limb.canonical_plain(limb.from_bytes(rand_bytes((n, 32)), spec), spec)
 
     # 3. kernels against their plain versions ------------------------------
     results = {}
@@ -600,7 +605,7 @@ def main() -> None:
         b = rand_elems(n, spec)
         a = limb.sub(fk.mul_tiled_ref(a, b, spec), a)    # semi, maybe negative
         err = max_abs_err(fk.mul_tiled(a, b, spec),
-                          limb.canonical(fk.mul_tiled_ref(a, b, spec), spec))
+                          limb.canonical_plain(fk.mul_tiled_ref(a, b, spec), spec))
         ms = cuda_ms(lambda: fk.mul_tiled(a, b, spec), 50)
         replay = graph_ms(lambda: fk.mul_tiled(a, b, spec), 50)
         plain = cuda_ms(lambda: fk.mul_tiled_ref(a, b, spec), 1 if n == K1_BIG else 5)
@@ -652,7 +657,7 @@ def main() -> None:
     for e, spec, a in [(e, limb.FIELD, x) for e in C.CHAIN_EXPONENTS] + [
             (C.R - 2, limb.SCALAR, xr)]:
         err = max_abs_err(fk.pow_tiled(a, e, spec),
-                          limb.canonical(fk.pow_tiled_ref(a, e, spec), spec))
+                          limb.canonical_plain(fk.pow_tiled_ref(a, e, spec), spec))
         msg = (f"e={hex(e)[:12]}.. mod {'r' if spec is limb.SCALAR else 'p'}, "
                f"{BATCH} lanes: max_abs_err {err} (tolerance {TOLERANCE}, "
                f"canonical limbs)")
@@ -716,6 +721,7 @@ def main() -> None:
             raise AssertionError(f"{label} differs from its plain version")
         record(wrapper, err, ms, plain, bound)
     torch.cuda.synchronize()
+    canonical_phase(dev, card, roof, record)
 
     # 4. vectors -----------------------------------------------------------
     small = (zt.RistrettoPoint.basepoint((16,), dev)
@@ -795,6 +801,7 @@ def main() -> None:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     record(fk.mul_tiled, 0, launches_ecdh=counts["mul_tiled"])
+    record(fk.canonical_tiled, 0, launches_ecdh=counts["canonical_tiled"])
 
     # 8. rates ---------------------------------------------------------------
     rates = []
@@ -841,14 +848,61 @@ def main() -> None:
                 "combine_tables": (MSM_SOURCE, TPU_MSM_KERNELS, 247),
                 "bucket_accum_k": (MSM_SOURCE, TPU_MSM_KERNELS, 339),
                 "bucket_accum": (MSM_SOURCE, TPU_MSM_KERNELS, 141),
-                "bucket_accum2": (MSM_SOURCE, TPU_MSM_KERNELS, 175)}
+                "bucket_accum2": (MSM_SOURCE, TPU_MSM_KERNELS, 175),
+                "canonical_tiled": (SOURCE, None, None)}
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": f"{tpu}:{line}", "launches": counts[name],
+                "replaces": f"{tpu}:{line}" if tpu else "none (XLA fused it)",
+                "launches": counts[name],
                 **results[name]} for name, (src, tpu, line) in replaces.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def canonical_phase(dev, card, roof, record) -> None:
+    """k_canonical in every mode modulo p and modulo r at 2^20 and 2^19
+    semi-reduced lanes (non-top limbs in [-13, 4109), top limb in [-2, 2);
+    mode "geq" against the modulus's is_positive bound, (m - 1) / 2 + 1;
+    mode "eq" against the lanes rolled by one): equal to its plain version,
+    its mean ms over back-to-back wrapper calls and replayed from a CUDA
+    graph, the plain version's ms, and the byte bound (88 bytes read an
+    operand, the mode's output written once).  Mode "limbs" modulo p at
+    2^20 is the kernels line's time."""
+    from zerocaf_tpu_torch.ops import limb
+    from zerocaf_tpu_torch.ops.kernels import field_kernels as fk
+
+    for spec in (limb.FIELD, limb.SCALAR):
+        half = limb.spec_limbs((spec.m - 1) // 2 + 1, spec)
+        for n in (1 << 20, 1 << 19):
+            g = torch.Generator(device=dev).manual_seed(SEED + 3)
+            x = torch.randint(-13, 4109, (n, 22), generator=g, device=dev,
+                              dtype=torch.int32)
+            x[:, 21] = torch.randint(-2, 2, (n,), generator=g, device=dev,
+                                     dtype=torch.int32)
+            y = x.roll(1, 0).contiguous()
+            for mode in fk.CANON_MODES:
+                kw = {"eq": {"other": y}, "geq": {"bound": half}}.get(mode, {})
+
+                def kern(mode=mode, kw=kw):
+                    return fk.canonical_tiled(x, spec, mode, **kw)
+
+                def plain(mode=mode, kw=kw):
+                    return fk.canonical_tiled_ref(x, spec, mode, **kw)
+
+                if not torch.equal(kern(), plain()):
+                    raise AssertionError(f"k_canonical ({spec.name}, {mode}, {n} "
+                                         "lanes) differs from its plain version")
+                ms, gms, pms = cuda_ms(kern, 50), graph_ms(kern, 50), cuda_ms(plain, 3)
+                bound = roof((0, 0), n * (88 * (2 if mode == "eq" else 1)
+                                          + {"limbs": 88, "bytes": 32}.get(mode, 1)))
+                phase("k_canonical", f"{card}: {spec.name}, {n} lanes, mode {mode}: "
+                      f"{ms:.4f} ms (graph {gms:.4f}), plain {pms:.3f} ms, byte "
+                      f"bound {bound['bound_ms']:.4f} ms; equal to the plain version")
+                if spec is limb.FIELD and n == 1 << 20 and mode == "limbs":
+                    record(fk.canonical_tiled, 0, ms, pms, bound)
+                else:
+                    record(fk.canonical_tiled, 0)
 
 
 def msm_inputs(pt, scalars, c: int):
@@ -867,7 +921,7 @@ def msm_inputs(pt, scalars, c: int):
 
 
 def msm_counts(fk, mk) -> dict[str, int]:
-    """The launch counts of K5, K7 and K8."""
+    """The launch counts of K5, K7, K8 and k_canonical."""
     return {k: v for k, v in {**fk.launch_counts(), **mk.launch_counts()}.items()
             if k in MSM_KERNELS}
 
@@ -1027,6 +1081,7 @@ def msm_phases(dev, rng, roof, card, ecdh_pts, record, steps,
     main_s = time.perf_counter() - t_main
     counts = msm_counts(fk, mk)
     record(fk.mul_tiled, 0, launches_msm=fk.mul_tiled.launches)
+    record(fk.canonical_tiled, 0, launches_msm=counts["canonical_tiled"])
 
     if not bool(ok) or bool(ok_bad) or not bool(ok_pad) or n_valid != n_pad:
         raise AssertionError(f"msm ok flags: {bool(ok)}, invalid lane "
@@ -1365,7 +1420,7 @@ def msm_option_phases(dev, roof, card, ctx, record) -> dict[str, int]:
                 got = call(fn, pst, d, nb, k, lanes, fold)
                 want, plain = host_ms(lambda: call(ref, pst, d, nb, k, lanes, fold))
                 if fold:                       # K5's rounds: canonical limbs
-                    want = limb.canonical(want, limb.FIELD)
+                    want = limb.canonical_plain(want, limb.FIELD)
                 err = max_abs_err(got, want)
                 del got, want
                 msg = (f"{n} points, c {MSM_C}, k {k}, {lanes} lanes, fold {fold}: "
@@ -1391,7 +1446,7 @@ def msm_option_phases(dev, roof, card, ctx, record) -> dict[str, int]:
         # there is phase 13's ten seconds again)
         if n == MSM_CHECK:
             err = max_abs_err(mk.bucket_accum_all(pst, dig, nb, lanes, FOLD_CHECKED),
-                              limb.canonical(mk.bucket_accum_all_ref(
+                              limb.canonical_plain(mk.bucket_accum_all_ref(
                                   pst, dig, nb, lanes, FOLD_CHECKED), limb.FIELD))
             phase("K7 bucket_accum_all", f"{n} points, fold {FOLD_CHECKED}: "
                   f"max_abs_err {err} (tolerance {TOLERANCE})")

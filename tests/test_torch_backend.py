@@ -122,7 +122,7 @@ def _arrs(vals, tspec):
 
 def _ints(t, tspec):
     """Canonical ints of port limbs (their canonical form, read back)."""
-    c = tl.canonical(t, tspec).to(torch.int64).numpy()
+    c = tl.canonical_plain(t, tspec).to(torch.int64).numpy()
     return [o.limbs_to_int(row, w=tspec.wbits) for row in c]
 
 
@@ -393,7 +393,7 @@ def test_checkpoint_load_defaults_to_the_card(tmp_path):
         config.set_default_device("cpu")
     assert (nxt, meta) == (5, {"n": 3}) and got.X.device.type == "cpu"
     for c, want in zip(got._tuple(), pt._tuple()):
-        assert torch.equal(tl.canonical(c, tl.FIELD), tl.canonical(want, tl.FIELD))
+        assert torch.equal(tl.canonical_plain(c, tl.FIELD), tl.canonical_plain(want, tl.FIELD))
 
 
 # ---------------------------------------------------------------------------

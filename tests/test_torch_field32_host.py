@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import canon_cases as cc
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from zerocaf_tpu_torch import oracle as o
 from zerocaf_tpu_torch.ops import limb as tl
@@ -45,9 +46,11 @@ SHIM = """
 
 BINDINGS = r"""
 #include <barrier>
+#include <cstring>
 #include <thread>
 
 #include "shim.h"
+#include "canon32.cuh"
 #include "comb32.cuh"
 #include "ladder32.cuh"
 #include "pow32.cuh"
@@ -358,6 +361,61 @@ void f32_comb(const int32_t* a, const int32_t* e, const int32_t* neg,
   }
 }
 }
+
+// k_canonical's lanes modulo K's modulus: limbs a [n][22] (b: the second
+// operand, mode 4; bound: 22 limbs, mode 3) -> canonical limbs [n][22]
+// (mode 0), 32 bytes [n][32] (1) or one-byte flags [n] (2-4).
+template <class K>
+static void canon_lanes(int mode, const int32_t* a, const int32_t* b,
+                        const int32_t* bound, uint8_t* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    int32_t x[NL], y[NL];
+    for (int k = 0; k < NL; ++k) {
+      x[k] = a[NL * i + k];
+      y[k] = b[NL * i + k];
+    }
+    canon_limbs<K>(x);
+    if (mode == CANON_LIMBS) {
+      std::memcpy(out + 4 * NL * i, x, sizeof x);
+    } else if (mode == CANON_BYTES) {
+      uint32_t w[8];
+      canon_bytes(x, w);
+      std::memcpy(out + 32 * i, w, sizeof w);
+    } else if (mode == CANON_ZERO) {
+      out[i] = limbs_zero(x);
+    } else if (mode == CANON_GEQ) {
+      out[i] = limbs_geq(x, [&](int k) { return bound[k]; });
+    } else {
+      canon_limbs<K>(y);
+      out[i] = limbs_eq(x, y);
+    }
+  }
+}
+
+template <class K>
+static void canon_consts_of(int32_t* out) {
+  for (int i = 0; i < NL; ++i) {
+    out[i] = K::m(i);
+    out[NL + i] = K::m64(i);
+  }
+  for (int j = 0; j < NFOLD; ++j) out[2 * NL + j] = K::c(j);
+  out[2 * NL + NFOLD] = K::FL;
+  out[2 * NL + NFOLD + 1] = K::FB;
+}
+
+extern "C" {
+void f32_canon(int spec, int mode, const int32_t* a, const int32_t* b,
+               const int32_t* bound, uint8_t* out, int n) {
+  spec ? canon_lanes<LimbR>(mode, a, b, bound, out, n)
+       : canon_lanes<LimbP>(mode, a, b, bound, out, n);
+}
+
+// canon32.cuh's constants (spec 0: p, 1: r): m and 64 m (22 limbs each),
+// the fold constant c (12 limbs), then the fold's limb and bit.
+void f32_canon_consts(int spec, int32_t* out) {
+  spec ? canon_consts_of<LimbR>(out) : canon_consts_of<LimbP>(out);
+}
+}
 """
 
 
@@ -391,7 +449,9 @@ def lib(tmp_path_factory):
                            ("f32_pow", [i, p, p, i, p, i]),
                            ("f32_quad", [i, p, p, p, i]),
                            ("f32_mul_limbs", [i, p, p, p, i]),
-                           ("f32_comb", [p, p, p, p, i])):
+                           ("f32_comb", [p, p, p, p, i]),
+                           ("f32_canon", [i, i, p, p, p, p, i]),
+                           ("f32_canon_consts", [i, p])):
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = None
     return lib
@@ -871,3 +931,45 @@ def test_comb_addition_matches_plain_and_oracle(lib, lazy_points):
                                                    torch.where(s, -e[2], e[2])))
     assert np.array_equal(got, _canonical_rows(plain))
     assert [_point_of(r) for r in got] == want
+
+
+# --- k_canonical's lane -------------------------------------------------------
+
+
+@pytest.mark.parametrize("spec", ["p", "r"])
+def test_canonical_constants_match_the_moduli(lib, spec):
+    """canon32.cuh's limbs of m, 64 m and the fold constant c (m = 2^K +
+    c, K = 12 FL + FB: 252 for p, 249 for r), as the compiled header holds
+    them, against the port's constants."""
+    tspec, m = (tl.FIELD, P) if spec == "p" else (tl.SCALAR, o.R)
+    got = np.zeros(2 * 22 + 14, dtype=np.int32)
+    lib.f32_canon_consts(int(spec == "r"), _ptr(got))
+    assert got[:22].tolist() == tl.spec_limbs(m, tspec).tolist()
+    assert got[22:44].tolist() == tspec.m64_limbs.tolist()
+    assert got[44:56].tolist() == tspec.final_c_limbs.tolist()
+    fl, fb = got[56:].tolist()
+    assert 12 * fl + fb == tspec.final_fold_bits
+    assert m == (1 << tspec.final_fold_bits) + o.limbs_to_int(got[44:56])
+
+
+@pytest.mark.parametrize("mode", cc.MODES)
+@pytest.mark.parametrize("spec", ["p", "r"])
+def test_canonical_lane_matches_plain_bit_for_bit(lib, spec, mode):
+    """k_canonical's lane (canon32.cuh), every mode, modulo p and r: equal
+    bit for bit to canonical_tiled_ref, and to Python integers, on the edge
+    set and the limb vectors with carry slack."""
+    tspec, m, bound = cc.MODULI[spec]
+    rows, vals = cc.cases(m, bound)
+    kw = cc.mode_args(tspec, m, bound, mode, vals)
+    b = kw["other"].numpy() if mode == "eq" else rows
+    bnd = np.ascontiguousarray(kw["bound"] if mode == "geq" else rows[0])
+    n = len(rows)
+    width = {"limbs": 88, "bytes": 32}.get(mode, 1)
+    out = np.zeros((n, width), dtype=np.uint8)
+    lib.f32_canon(int(spec == "r"), fk.CANON_MODES[mode], _ptr(rows),
+                  _ptr(np.ascontiguousarray(b)), _ptr(bnd), _ptr(out), n)
+    plain = fk.canonical_tiled_ref(torch.tensor(rows), tspec, mode, **kw).numpy()
+    got = out.view(np.int32) if mode == "limbs" else out if mode == "bytes" else (
+        out[:, 0].astype(bool))
+    assert np.array_equal(got, plain)
+    assert got.tolist() == cc.expected(mode, vals, m, bound)

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import canon_cases as cc
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from zerocaf_tpu import constants as JC
 from zerocaf_tpu import oracle as o
@@ -35,7 +36,7 @@ def _limbs(vals):
 
 
 def _ints(t, spec=tl.FIELD):
-    return [o.limbs_to_int(r) for r in tl.canonical(t, spec).numpy()]
+    return [o.limbs_to_int(r) for r in tl.canonical_plain(t, spec).numpy()]
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +99,7 @@ def test_mul_tiled_ref_matches_jax_and_oracle(elems, spec):
     casc = jax.jit(lambda x, y: jl.reduce_to_semi_cascade(jl.school(x, y), jspec))
     assert np.array_equal(got.numpy(), np.asarray(casc(jnp.asarray(a), jnp.asarray(b))))
     want = jl.canonical(jl.mul(jnp.asarray(a), jnp.asarray(b), jspec), jspec)
-    assert np.array_equal(tl.canonical(got, tspec).numpy(), np.asarray(want))
+    assert np.array_equal(tl.canonical_plain(got, tspec).numpy(), np.asarray(want))
     # the semi limbs' integer value (signed limbs) reduced mod m
     vals = [o.limbs_to_int(r) for r in a]
     assert _ints(got, tspec) == [v * y % m for v, y in zip(vals, elems["ys"])]
@@ -158,7 +159,7 @@ def test_core_words_are_the_montgomery_form(elems):
 def test_pow_tiled_ref_matches_jax_and_oracle(elems, e):
     got = fk.pow_tiled_ref(torch.tensor(elems["semi"]), e)
     want = jl.canonical(jl.pow_const(jnp.asarray(elems["semi"]), e, jl.FIELD), jl.FIELD)
-    assert np.array_equal(tl.canonical(got, tl.FIELD).numpy(), np.asarray(want))
+    assert np.array_equal(tl.canonical_plain(got, tl.FIELD).numpy(), np.asarray(want))
     assert _ints(got) == [pow(v, e, o.P) for v in elems["vals"]]
 
 
@@ -227,6 +228,51 @@ def test_ladder_wrapper_checks_its_inputs(ladder_inputs):
         fk.scalar_mul_windowed_stepped(pt, torch.tensor(d["wins"]), 5)
 
 
+# --- k_canonical: the observation boundary ----------------------------------
+
+@pytest.mark.parametrize("mode", cc.MODES)
+@pytest.mark.parametrize("modulus", ["p", "r"])
+def test_canonical_tiled_plain_matches_python_ints(modulus, mode):
+    """k_canonical's plain version (also what the wrapper runs on a CPU
+    tensor, with no launch), in every mode, against Python integers on the
+    edge set and the limb vectors with carry slack."""
+    spec, m, bound = cc.MODULI[modulus]
+    rows, vals = cc.cases(m, bound)
+    x = torch.tensor(rows)
+    kw = cc.mode_args(spec, m, bound, mode, vals)
+    got = fk.canonical_tiled_ref(x, spec, mode, **kw)
+    before = fk.canonical_tiled.launches
+    assert torch.equal(fk.canonical_tiled(x, spec, mode, **kw), got)
+    assert fk.canonical_tiled.launches == before
+    assert got.dtype == {"limbs": torch.int32, "bytes": torch.uint8}.get(mode, torch.bool)
+    assert got.tolist() == cc.expected(mode, vals, m, bound)
+
+
+def test_canonical_tiled_checks_its_inputs():
+    a = torch.zeros((4, 22), dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        fk.canonical_tiled(a.long(), tl.FIELD, "limbs")
+    with pytest.raises(ValueError, match="limb axis"):
+        fk.canonical_tiled(a[:, :21], tl.FIELD, "bytes")
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.canonical_tiled(torch.zeros((22, 4), dtype=torch.int32).t(), tl.FIELD, "zero")
+    meta = torch.empty((4, 22), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="tensors on"):
+        fk.canonical_tiled(a, tl.FIELD, "eq", other=meta)
+    with pytest.raises(ValueError, match="shapes differ"):
+        fk.canonical_tiled(a, tl.FIELD, "eq", other=a[:2])
+    with pytest.raises(ValueError, match="mode must be"):
+        fk.canonical_tiled(a, tl.FIELD, "sign")
+    with pytest.raises(ValueError, match="second operand"):
+        fk.canonical_tiled(a, tl.FIELD, "eq")
+    with pytest.raises(ValueError, match="second operand"):
+        fk.canonical_tiled(a, tl.FIELD, "zero", other=a)
+    with pytest.raises(ValueError, match="bound"):
+        fk.canonical_tiled(a, tl.FIELD, "geq")
+    with pytest.raises(ValueError, match="bound"):
+        fk.canonical_tiled(a, tl.FIELD, "geq", bound=tl.int_limbs(5)[:21])
+
+
 # --- routing: CPU runs the plain version; anything else launches or raises ---
 
 
@@ -263,7 +309,8 @@ def test_cuda_route_raises_without_the_library(monkeypatch, tmp_path, ladder_inp
              lambda: fk.fixed_base_mul_stepped(
                  torch.zeros((4, 32), dtype=torch.int32), 8, signed=True),
              lambda: fk.scalar_mul_windowed_fused(
-                 pt, torch.tensor(ladder_inputs["wins"]), 4))
+                 pt, torch.tensor(ladder_inputs["wins"]), 4),
+             lambda: fk.canonical_tiled(a, tl.FIELD, "bytes"))
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
@@ -294,7 +341,7 @@ def test_mul_tiled_kernel_equals_plain(cuda, elems, spec):
         semi = torch.tensor(np.tile(elems["semi"], (reps, 1))[:lanes], device=cuda)
         b = torch.tensor(np.tile(elems["B"], (reps, 1))[:lanes], device=cuda)
         for x, y in ((semi, b), (-semi, b), (semi + b, -b), (semi[1:], b[1:])):
-            want = tl.canonical(fk.mul_tiled_ref(x, y, tspec), tspec)
+            want = tl.canonical_plain(fk.mul_tiled_ref(x, y, tspec), tspec)
             assert torch.equal(fk.mul_tiled(x, y, tspec), want)
 
 
@@ -302,7 +349,7 @@ def test_mul_tiled_kernel_equals_plain(cuda, elems, spec):
 @pytest.mark.parametrize("e", CHAIN + SHORT, ids=lambda e: hex(e)[:12])
 def test_pow_tiled_kernel_equals_plain(cuda, elems, e):
     a = torch.tensor(np.tile(elems["semi"], (25, 1)), device=cuda)
-    assert torch.equal(fk.pow_tiled(a, e), tl.canonical(fk.pow_tiled_ref(a, e), tl.FIELD))
+    assert torch.equal(fk.pow_tiled(a, e), tl.canonical_plain(fk.pow_tiled_ref(a, e), tl.FIELD))
 
 
 @pytest.mark.cuda
@@ -315,7 +362,7 @@ def test_pow_tiled_kernel_mod_r_and_ragged_lanes(cuda, elems, lanes):
     a = torch.tensor(rows, device=cuda)
     for e, spec, m in ((o.R - 2, tl.SCALAR, o.R), (JC.EXP_SQRT_RATIO, tl.FIELD, o.P)):
         got = fk.pow_tiled(a, e, spec)
-        assert torch.equal(got, tl.canonical(fk.pow_tiled_ref(a, e, spec), spec))
+        assert torch.equal(got, tl.canonical_plain(fk.pow_tiled_ref(a, e, spec), spec))
         vals = [o.limbs_to_int(r) % m for r in rows]
         assert [o.limbs_to_int(r) for r in got.cpu().numpy()] == [pow(v, e, m)
                                                                   for v in vals]
@@ -331,7 +378,7 @@ def test_ladder_kernels_equal_plain(cuda, ladder_inputs, signed, width):
                  if signed else (fk.scalar_mul_windowed_stepped,
                                  fk.scalar_mul_windowed_stepped_ref))
     got, want = kern(pt, win, width), ref(pt, win, width)
-    assert all(torch.equal(g, tl.canonical(w, tl.FIELD)) for g, w in zip(got, want))
+    assert all(torch.equal(g, tl.canonical_plain(w, tl.FIELD)) for g, w in zip(got, want))
     assert [r.tobytes() for r in tri._compress(got).cpu().numpy()] == d["want"]
 
 
@@ -349,7 +396,7 @@ def test_signed_kernel_drops_the_top_carry(cuda, ladder_inputs):
     win = torch.tensor(wins, device=cuda)
     got = fk.scalar_mul_windowed_signed(pt, win, 4)
     want = fk.scalar_mul_windowed_signed_ref(pt, win, 4)
-    assert all(torch.equal(g, tl.canonical(w, tl.FIELD)) for g, w in zip(got, want))
+    assert all(torch.equal(g, tl.canonical_plain(w, tl.FIELD)) for g, w in zip(got, want))
     neg = o.point_neg(tuple(o.limbs_to_int(c[0]) for c in d["coords"]))
     assert _wire(tuple(g[:1].cpu() for g in got)) == [o.ristretto_compress(neg)]
 
@@ -363,5 +410,5 @@ def test_fused_kernel_equals_plain(cuda, ladder_inputs):
     got = fk.scalar_mul_windowed_fused(pt, win, 4)
     assert fk.scalar_mul_windowed_fused.launches == before + 1
     want = fk.scalar_mul_windowed_stepped_ref(pt, win, 4)
-    assert all(torch.equal(g, tl.canonical(w, tl.FIELD)) for g, w in zip(got, want))
+    assert all(torch.equal(g, tl.canonical_plain(w, tl.FIELD)) for g, w in zip(got, want))
     assert [r.tobytes() for r in tri._compress(got).cpu().numpy()] == d["want"]

@@ -150,6 +150,7 @@ def test_eq_is_zero_geq(data):
     bound = tl.int_limbs(m // 2)
     ge = tl.geq_const(torch.tensor(_tcanon(a2, d)), bound).tolist()
     assert ge == [v >= m // 2 for v in d["x2"]]
+    assert tl.canonical_geq(a2, bound, d["tspec"]).tolist() == ge
 
 
 def test_pow_const_short_exponents(data):

@@ -229,7 +229,7 @@ def test_bucket_accum_all_ref_matches_oracle(case):
             assert o.point_eq(got, want), (w, b)
     # bucket 0 is never written: it stays the identity limb for limb
     assert (flat[:, 0, :, :, :] == np.array([0, 1, 1, 0])[:, None] * np.eye(1, 22)).all()
-    assert torch.equal(tbl, tl.canonical(tbl, tl.FIELD))   # canonical limbs
+    assert torch.equal(tbl, tl.canonical_plain(tbl, tl.FIELD))   # canonical limbs
 
 
 def test_bucket_accum_all_checks_its_inputs():
@@ -249,7 +249,7 @@ def test_bucket_accum_all_checks_its_inputs():
 def _canonical(t):
     """True where every [..., 22] element of t is canonical: limbs in [0,
     4096) and value below p."""
-    return torch.equal(t, tl.canonical(t, tl.FIELD))
+    return torch.equal(t, tl.canonical_plain(t, tl.FIELD))
 
 
 def test_to_field32_ref_matches_oracle(case):
@@ -405,7 +405,7 @@ def test_padd_tiled_kernel_equals_plain(cuda):
     tp, tq = (tuple(t.to(cuda) for t in _tpt(_coords(x))) for x in (p, q))
     tp = (-tp[0], tp[1], tp[2], -tp[3])                # negated: signed limbs
     got, want = fk.padd_tiled(tp, tq), fk.padd_tiled_ref(tp, tq)
-    assert all(torch.equal(g, tl.canonical(w, tl.FIELD)) for g, w in zip(got, want))
+    assert all(torch.equal(g, tl.canonical_plain(w, tl.FIELD)) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -419,7 +419,7 @@ def test_padd_tiled_kernel_reads_strided_views(cuda):
     p = tuple(tbl[:, :32, j] for j in range(4))
     q = tuple(tbl[:, 32:, j] for j in range(4))
     got, want = fk.padd_tiled(p, q), fk.padd_tiled_ref(p, q)
-    assert all(torch.equal(g, tl.canonical(w, tl.FIELD)) for g, w in zip(got, want))
+    assert all(torch.equal(g, tl.canonical_plain(w, tl.FIELD)) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -435,7 +435,7 @@ def test_padd_tiled_kernel_reads_column_views(cuda):
     p = tuple(c[:, 1] for c in v)
     q = tuple(c[:, 0] for c in v)
     got, want = fk.padd_tiled(p, q), fk.padd_tiled_ref(p, q)
-    assert all(torch.equal(g, tl.canonical(w, tl.FIELD)) for g, w in zip(got, want))
+    assert all(torch.equal(g, tl.canonical_plain(w, tl.FIELD)) for g, w in zip(got, want))
     sums = [o.point_add(o.point_neg(pts[(2 * i + 1) % 40]), o.point_neg(pts[2 * i % 40]))
             for i in range(150)]
     assert all(o.point_eq(g, w) for g, w in zip(_ints(tuple(t.cpu() for t in got)), sums))
@@ -474,7 +474,7 @@ def test_combine_tables_kernel_equals_plain(cuda, nwin, c):
     tables = tuple(t.to(cuda).reshape(nwin, nb, 22) for t in _tpt(_coords(pts)))
     got = mk.combine_tables(tables, nb, nwin, c)
     want = mk.combine_tables_ref(tables, nb, nwin, c)
-    assert all(torch.equal(g, tl.canonical(w, tl.FIELD)) for g, w in zip(got, want))
+    assert all(torch.equal(g, tl.canonical_plain(w, tl.FIELD)) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -491,7 +491,7 @@ def test_combine_tables_kernel_strided(cuda):
     tables = tuple(t.to(cuda).reshape(nwin, nb, 22) for t in _tpt(coords))
     got = mk.combine_tables(tables, nb, nwin, c, tail=tail)
     want = mk.combine_tables_ref(tables, nb, nwin, c, tail=tail)
-    assert all(torch.equal(g, tl.canonical(w, tl.FIELD)) for g, w in zip(got, want))
+    assert all(torch.equal(g, tl.canonical_plain(w, tl.FIELD)) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -676,12 +676,12 @@ def test_group_entry_kernels_equal_plain(cuda, case, fold):
     got = mk.bucket_accum_k(pts, dig, nb, 4, lanes, fold=fold)
     assert _canonical(got)          # K7's kernel and K5 both write canonical limbs
     # the fold's K5 rounds on the card against K5's plain version: canonical
-    want = tl.canonical(mk.bucket_accum_k_ref(pts, dig, nb, 4, lanes, fold=fold),
+    want = tl.canonical_plain(mk.bucket_accum_k_ref(pts, dig, nb, 4, lanes, fold=fold),
                         tl.FIELD)
     assert torch.equal(got, want)
     got = mk.bucket_accum_all(pts, dig[None], nb, lanes, fold=fold)
     want = mk.bucket_accum_all_ref(pts, dig[None], nb, lanes, fold=fold)
-    assert torch.equal(got, tl.canonical(want, tl.FIELD))
+    assert torch.equal(got, tl.canonical_plain(want, tl.FIELD))
     if fold == 0:
         for entry, ref, d in ((mk.bucket_accum, mk.bucket_accum_ref, dig[:1]),
                               (mk.bucket_accum2, mk.bucket_accum2_ref, dig[2:])):

@@ -1,6 +1,7 @@
 // Hopper kernels K1-K6 and K10 (field multiply, power chains, the ladders,
-// batched point addition and the fixed-base comb), and a plain C launcher
-// per kernel (bound with ctypes by zerocaf_tpu_torch/ops/kernels/build.py).
+// batched point addition and the fixed-base comb), k_canonical (the limb
+// engine's observation boundary), and a plain C launcher per kernel (bound
+// with ctypes by zerocaf_tpu_torch/ops/kernels/build.py).
 // Every launcher enqueues on the stream it is given and returns
 // cudaGetLastError().
 //
@@ -29,6 +30,7 @@
 
 #include <cstdint>
 
+#include "canon32.cuh"
 #include "comb32.cuh"
 #include "field32.cuh"
 #include "init.cuh"
@@ -441,6 +443,95 @@ __global__ void __launch_bounds__(BLOCK)
   core_store(out + 3 * plane, lane, Q.T);
 }
 
+// Row t of a block's tile in shared memory <-> 22 limbs in registers, in
+// 8-byte pieces: a warp's reads at a stride of 88 bytes fall in 32
+// different banks.
+__device__ __forceinline__ void row_in(const int32_t* tile, int t,
+                                       int32_t (&x)[L]) {
+  const int2* r = reinterpret_cast<const int2*>(tile + t * L);
+#pragma unroll
+  for (int k = 0; k < L / 2; ++k) {
+    const int2 u = r[k];
+    x[2 * k] = u.x;
+    x[2 * k + 1] = u.y;
+  }
+}
+
+__device__ __forceinline__ void row_out(int32_t* tile, int t,
+                                        const int32_t (&x)[L]) {
+  int2* r = reinterpret_cast<int2*>(tile + t * L);
+#pragma unroll
+  for (int k = 0; k < L / 2; ++k) r[k] = make_int2(x[2 * k], x[2 * k + 1]);
+}
+
+// k_canonical -- replaces no Pallas kernel: in the JAX package XLA fused
+// the limb engine's canonicalization (limb.canonical and the observers on
+// it) into the surrounding program, while in PyTorch the same algebra was
+// some 280-550 launches an observation (four exact carries, each a Python
+// loop over 21 limb columns ended by a torch.stack).  One thread a lane
+// runs zc32::canon_limbs (canon32.cuh) on its 22 limbs in registers and
+// writes what MODE asks for (zc32::CanonMode): the canonical limbs, the 32
+// little-endian bytes, or a one-byte flag (zero; >= the 22 limbs at
+// `bound`; equal to operand b's canonical value).
+//
+// Bound by bytes: 88 read and at most 88 written a lane (176 in eq mode),
+// so 2^20 lanes in and out take 0.055 ms at 3.35 TB/s, against some 600
+// integer instructions a lane.  Read in place, the [n][22] rows put a
+// warp's loads 88 bytes apart, some 22 sectors a load instruction; so a
+// block's 128 rows (11,264 bytes an operand) arrive in shared memory in
+// coalesced 16-byte loads (tile_copy, as in k_mul), each thread reads its
+// own row in 8-byte pieces, and canonical limbs leave the same way.  Bytes
+// leave as two 16-byte stores a lane, flags as one byte a lane.  Nothing
+// is allocated at launch.
+template <class K, int MODE, bool VEC>
+__global__ void __launch_bounds__(BLOCK)
+    k_canonical(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                const int32_t* __restrict__ bound, void* __restrict__ out,
+                int n) {
+  constexpr bool TWO = MODE == zc32::CANON_EQ;
+  __shared__ __align__(16) int32_t ta[BLOCK * L];
+  __shared__ __align__(16) int32_t tb[TWO ? BLOCK * L : 4];
+  const size_t first = (size_t)blockIdx.x * BLOCK;
+  const int count = min(BLOCK, n - (int)first);
+  const int words = count * L;
+  tile_copy<VEC>(ta, a + first * L, words);
+  if (TWO) tile_copy<VEC>(tb, b + first * L, words);
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < count) {
+    int32_t x[L];
+    row_in(ta, t, x);
+    zc32::canon_limbs<K>(x);
+    const size_t lane = first + t;
+    if constexpr (MODE == zc32::CANON_LIMBS) {
+      row_out(ta, t, x);
+    } else if constexpr (MODE == zc32::CANON_BYTES) {
+      uint32_t w[8];
+      zc32::canon_bytes(x, w);
+      uint4* dst = reinterpret_cast<uint4*>(static_cast<uint8_t*>(out) + lane * 32);
+      dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+      dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+    } else {
+      int32_t flag;
+      if constexpr (MODE == zc32::CANON_ZERO) {
+        flag = zc32::limbs_zero(x);
+      } else if constexpr (MODE == zc32::CANON_GEQ) {
+        flag = zc32::limbs_geq(x, [&](int i) { return __ldg(bound + i); });
+      } else {
+        int32_t y[L];
+        row_in(tb, t, y);
+        zc32::canon_limbs<K>(y);
+        flag = zc32::limbs_eq(x, y);
+      }
+      static_cast<uint8_t*>(out)[lane] = static_cast<uint8_t>(flag);
+    }
+  }
+  if constexpr (MODE == zc32::CANON_LIMBS) {
+    __syncthreads();
+    tile_copy<VEC>(static_cast<int32_t*>(out) + first * L, ta, words);
+  }
+}
+
 inline int blocks_for(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 inline bool aligned16(const void* p) {
@@ -453,6 +544,39 @@ inline bool padd_pairs(const PaddIn& in) {
   for (int c = 0; c < 4; ++c)
     pairs = pairs && reinterpret_cast<uintptr_t>(in.c[c]) % 8 == 0;
   return pairs;
+}
+
+// k_canonical at one mode: 16-byte tile copies where every tile it copies
+// is 16-byte aligned.
+template <class K, int MODE>
+int launch_canonical_at(const int32_t* a, const int32_t* b,
+                        const int32_t* bound, void* out, int n,
+                        cudaStream_t s) {
+  const bool vec = aligned16(a) && (MODE != zc32::CANON_EQ || aligned16(b)) &&
+                   (MODE != zc32::CANON_LIMBS || aligned16(out));
+  if (vec)
+    k_canonical<K, MODE, true><<<blocks_for(n), BLOCK, 0, s>>>(a, b, bound, out, n);
+  else
+    k_canonical<K, MODE, false><<<blocks_for(n), BLOCK, 0, s>>>(a, b, bound, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class K>
+int launch_canonical(int mode, const int32_t* a, const int32_t* b,
+                     const int32_t* bound, void* out, int n, cudaStream_t s) {
+  switch (mode) {
+    case zc32::CANON_LIMBS:
+      return launch_canonical_at<K, zc32::CANON_LIMBS>(a, b, bound, out, n, s);
+    case zc32::CANON_BYTES:
+      return launch_canonical_at<K, zc32::CANON_BYTES>(a, b, bound, out, n, s);
+    case zc32::CANON_ZERO:
+      return launch_canonical_at<K, zc32::CANON_ZERO>(a, b, bound, out, n, s);
+    case zc32::CANON_GEQ:
+      return launch_canonical_at<K, zc32::CANON_GEQ>(a, b, bound, out, n, s);
+    case zc32::CANON_EQ:
+      return launch_canonical_at<K, zc32::CANON_EQ>(a, b, bound, out, n, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace zc
@@ -522,6 +646,16 @@ int zc_comb(const int32_t* tbl, const int32_t* win, int nwin, int width,
       reinterpret_cast<const uint32_t*>(tbl), win, nwin, width, is_signed,
       nent, out, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// a, b: [n][22] (b read in mode 4 only); bound: 22 limbs (mode 3 only);
+// out: [n][22] int32 (mode 0), [n][32] bytes (1) or [n] flags (2-4).
+// spec 0 canonicalizes mod p, 1 mod r; mode is a zc32::CanonMode.
+int zc_canonical(const int32_t* a, const int32_t* b, const int32_t* bound,
+                 void* out, int n, int spec, int mode, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  return spec ? zc::launch_canonical<zc32::LimbR>(mode, a, b, bound, out, n, s)
+              : zc::launch_canonical<zc32::LimbP>(mode, a, b, bound, out, n, s);
 }
 
 }  // extern "C"

@@ -34,9 +34,9 @@ def legendre_is_qr(a: torch.Tensor, spec: ModSpec = FIELD) -> torch.Tensor:
 
 def is_positive(a: torch.Tensor, spec: ModSpec = FIELD) -> torch.Tensor:
     """Decaf non-negativity: canonical value <= (p-1)/2, branch-free
-    (canonical plus a lexicographic compare; no branch on the value)."""
-    return ~limb.geq_const(limb.canonical(a, spec),
-                           limb.spec_limbs(C.POS_RANGE + 1, spec))
+    (canonical plus a lexicographic compare, one launch on CUDA; no branch
+    on the value)."""
+    return ~limb.canonical_geq(a, limb.spec_limbs(C.POS_RANGE + 1, spec), spec)
 
 
 def abs_positive(a: torch.Tensor, spec: ModSpec = FIELD) -> torch.Tensor:

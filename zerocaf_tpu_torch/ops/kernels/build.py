@@ -40,6 +40,7 @@ SIGNATURES = {
         "zc_padd": [*[_ptr] * 4, _i32, _i32, *[_ptr] * 4, _i32, _i32, _ptr,
                     _i32, _i32, _ptr],
         "zc_comb": [_ptr, _ptr, _i32, _i32, _i32, _i32, _ptr, _i32, _ptr],
+        "zc_canonical": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _ptr],
     },
     "msm_kernels": {
         "zc_to_field32": [_ptr, _ptr, _i32, _ptr],

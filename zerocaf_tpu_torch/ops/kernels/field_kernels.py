@@ -1,5 +1,6 @@
-"""Hand-written Hopper kernels K1-K6 and K10 and their plain PyTorch
-versions (zerocaf_tpu/ops/pallas/field_kernels.py counterpart).
+"""Hand-written Hopper kernels K1-K6, K10 and ``k_canonical`` and their
+plain PyTorch versions (zerocaf_tpu/ops/pallas/field_kernels.py
+counterpart).
 
   K1  ``mul_tiled``                    a*b mod p or mod r
   K2  ``pow_tiled``                    a^e for a static exponent, width-4 windows
@@ -10,12 +11,15 @@ versions (zerocaf_tpu/ops/pallas/field_kernels.py counterpart).
   K6  ``fixed_base_mul_stepped``       fixed-base comb: B*k from a shared table
   K10 ``scalar_mul_windowed_fused``    the unsigned windowed ladder as one
                                        program (K3's kernel, its own entry)
+      ``canonical_tiled``              the observation boundary: canonical
+                                       limbs, bytes, zero, >= a constant,
+                                       equality (no TPU kernel: XLA fused it)
 
 The CUDA sources are ``zerocaf_tpu_torch/csrc/field_kernels.cu`` with
 the 8 x 32-bit core ``field32.cuh`` and the per-lane bodies ``pow32.cuh``
-(K2), ``ladder32.cuh`` (K3, K4, K10) and ``comb32.cuh`` (K6).  Each wrapper
-checks its tensors (int32, limb axis 22, contiguous, one device) and
-raises on anything else.  For CUDA tensors it launches its kernel, or
+(K2), ``ladder32.cuh`` (K3, K4, K10), ``comb32.cuh`` (K6) and
+``canon32.cuh`` (``k_canonical``).  Each wrapper checks its tensors
+(int32, limb axis 22, contiguous, one device) and raises on anything else.  For CUDA tensors it launches its kernel, or
 raises if the kernel library cannot be built or the launch fails; for CPU
 tensors it runs the plain version beside it.  ``<wrapper>.launches``
 counts kernel launches and nothing else (K1's and K2's ``by_modulus``
@@ -27,12 +31,15 @@ carry passes (``_c1``) at the same places as its block helpers.  The
 kernels compute on the 8 x 32-bit Montgomery core of ``field32.cuh`` (K1
 and K2 modulo p or r) with the same formulas and chains, so they give the
 same field values and write them as canonical limbs: they agree with their
-plain versions after ``limb.canonical``.
+plain versions after ``limb.canonical``.  ``k_canonical`` runs the limb
+engine's own canonicalization on the 22 x 12 limbs and equals its plain
+version bit for bit.
 
 Constant time: the ladders read every table entry and select by mask.
 Power chains: the access pattern depends only on the public exponent (K2
 reads the table entry at each public digit).  The comb (K6) loads the entry
-at the secret digit, as the reference does.
+at the secret digit, as the reference does.  ``k_canonical`` has no branch
+and no load indexed by a value.
 
 Laziness bounds (radix 2^12, int32 columns), as in the JAX package:
   * semi limbs are < 2^12.1 after a carry pass;
@@ -251,9 +258,9 @@ def core_words(x):
     """[..., 22] limbs (any values the limb engine makes) -> [..., 8] int32
     holding the uint32 words of v R mod p (R = 2^256), the core's
     Montgomery form, by the plain multiply (no kernel launches)."""
-    v = limb.canonical(x, FIELD)
+    v = limb.canonical_plain(x, FIELD)
     mont = _mulb(v, limb.const(_R_MOD_P, x.device))
-    return limbs_to_words(limb.canonical(mont, FIELD))
+    return limbs_to_words(limb.canonical_plain(mont, FIELD))
 
 
 # ---------------------------------------------------------------------------
@@ -696,11 +703,76 @@ def scalar_mul_windowed_fused(pt, windows, width: int = 4):
 scalar_mul_windowed_fused.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# k_canonical: the limb engine's observation boundary
+# ---------------------------------------------------------------------------
+
+CANON_MODES = {"limbs": 0, "bytes": 1, "zero": 2, "geq": 3, "eq": 4}
+
+
+def canonical_tiled_ref(x, spec: ModSpec, mode: str, other=None, bound=None):
+    """Plain version of ``k_canonical``: ``limb.canonical_plain``, then the
+    mode's read of the canonical limbs (``limb.limbs_to_bytes``, the zero
+    test, ``limb.geq_const`` against ``bound``, equality with ``other``'s
+    canonical limbs)."""
+    c = limb.canonical_plain(x, spec)
+    if mode == "limbs":
+        return c
+    if mode == "bytes":
+        return limb.limbs_to_bytes(c)
+    if mode == "zero":
+        return torch.all(c == 0, dim=-1)
+    if mode == "geq":
+        return limb.geq_const(c, bound)
+    return torch.all(c == limb.canonical_plain(other, spec), dim=-1)
+
+
+def canonical_tiled(x, spec: ModSpec, mode: str, other=None, bound=None):
+    """What an observer reads of the canonical value of [..., 22] limbs
+    (any value in (-2^255, 2^255)) modulo spec.m, in one launch of
+    ``k_canonical``, which replaces no TPU kernel (XLA fused this glue):
+    mode "limbs" the canonical limbs [..., 22] int32, "bytes" the 32
+    little-endian bytes [..., 32] uint8, "zero" value == 0, "geq" value >=
+    ``bound`` (22 canonical limbs, int32 numpy, held at module level or from
+    ``limb.spec_limbs``: ``limb.const`` keeps a device copy of every array
+    it is given), "eq" value == ``other``'s canonical value ([...] bool
+    each)."""
+    name = "canonical_tiled"
+    if mode not in CANON_MODES:
+        raise ValueError(f"{name}: mode must be one of {list(CANON_MODES)}, "
+                         f"got {mode!r}")
+    if (other is not None) != (mode == "eq"):
+        raise ValueError(f"{name}: mode 'eq', and it alone, takes a second operand")
+    if (bound is not None) != (mode == "geq") or (bound is not None
+                                                  and len(bound) != L):
+        raise ValueError(f"{name}: mode 'geq', and it alone, takes a bound of "
+                         f"{L} limbs")
+    _check_limbs(name, *((x, other) if mode == "eq" else (x,)))
+    if _on_cpu(x):
+        return canonical_tiled_ref(x, spec, mode, other, bound)
+    batch = x.shape[:-1]
+    shape, dtype = {"limbs": (x.shape, torch.int32),
+                    "bytes": ((*batch, 32), torch.uint8)}.get(mode, (batch, torch.bool))
+    out = torch.empty(shape, dtype=dtype, device=x.device)
+    n = _flat(x)
+    if n:
+        b = other if mode == "eq" else x                  # read in mode "eq" only
+        bt = limb.const(bound, x.device) if mode == "geq" else x
+        _launch(name, x.device, "zc_canonical", x, b, bt, out, n, spec.kernel_id,
+                CANON_MODES[mode])
+        canonical_tiled.launches += 1
+    return out
+
+
+canonical_tiled.launches = 0
+
+
 def kernel_wrappers():
-    """The seven wrappers, in kernel order K1..K6, K10."""
+    """The eight wrappers, in kernel order K1..K6, K10, then
+    ``canonical_tiled``."""
     return (mul_tiled, pow_tiled, scalar_mul_windowed_stepped,
             scalar_mul_windowed_signed, padd_tiled, fixed_base_mul_stepped,
-            scalar_mul_windowed_fused)
+            scalar_mul_windowed_fused, canonical_tiled)
 
 
 def reset_launch_counts() -> None:

@@ -161,7 +161,7 @@ def _accum_ref(pts, dig_g, nb: int, lanes: int):
         upd = torch.where((d != 0)[..., None, None], torch.stack(R, dim=-2), e)
         tbl[rows, a, cols] = upd
     for w in range(nw):                   # one window at a time: less memory
-        tbl[w] = _l.canonical(tbl[w], _l.FIELD)
+        tbl[w] = _l.canonical_plain(tbl[w], _l.FIELD)
     return tbl.reshape(ngrp, k, nb, lanes, 4, L)
 
 

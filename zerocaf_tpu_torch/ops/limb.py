@@ -18,6 +18,11 @@ two's complement, which the carry algebra relies on for negative limbs.
 ``mul``, ``square`` and ``pow_const`` (for exponents of 32 bits or more) go
 through the kernel wrappers of ``ops/kernels/field_kernels.py``: a CUDA
 kernel for CUDA tensors, the same algebra in plain PyTorch for CPU tensors.
+The observers ``canonical``, ``to_bytes``, ``eq``, ``is_zero`` and
+``canonical_geq`` run one ``k_canonical`` launch each on a CUDA tensor of an
+i32x22 spec and its plain version on a CPU tensor (``canonical_tiled``);
+the f32x29 backend takes the plain algebra (``canonical_plain`` and the
+reads on it).
 
 The f32x29 backend (``FIELD_F9``, ``SCALAR_F9``): 29 float32 limbs of radix
 2^9 (252 = 9 * 28 keeps the fold limb-aligned).  Every partial product is
@@ -364,9 +369,26 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def _observe(x: torch.Tensor, spec: ModSpec, mode: str, **kw) -> torch.Tensor:
+    """``mode``'s read of x's canonical value by ``canonical_tiled``: one
+    ``k_canonical`` launch on CUDA, the plain version on the CPU."""
+    from .kernels import field_kernels as fk
+
+    return fk.canonical_tiled(x.contiguous(), spec, mode, **kw)
+
+
 def canonical(x: torch.Tensor, spec: ModSpec) -> torch.Tensor:
     """Semi-reduced -> canonical [0, m) with exact limbs in [0, 2^wbits), in
-    the input's dtype.  Accepts any value in (-2^255, 2^255):
+    the input's dtype: ``canonical_plain``, in one ``k_canonical`` launch on
+    a CUDA tensor of an i32x22 spec."""
+    if spec.kernel_id is None:
+        return canonical_plain(x, spec)
+    return _observe(x, spec, "limbs")
+
+
+def canonical_plain(x: torch.Tensor, spec: ModSpec) -> torch.Tensor:
+    """Semi-reduced -> canonical [0, m) with exact limbs in [0, 2^wbits), in
+    the input's dtype, in PyTorch.  Accepts any value in (-2^255, 2^255):
       1. exact carry; if negative, add 64*m (> 2^255);
       2. fold the bits above 2^k (k = 252 for p, 249 for r):
          low + h*2^k == low - h*c (mod m), h < 2^10;
@@ -399,12 +421,28 @@ def canonical(x: torch.Tensor, spec: ModSpec) -> torch.Tensor:
 
 
 def eq(a: torch.Tensor, b: torch.Tensor, spec: ModSpec) -> torch.Tensor:
-    """Canonical equality mask."""
-    return torch.all(canonical(a, spec) == canonical(b, spec), dim=-1)
+    """Canonical equality mask (one launch for both operands on CUDA)."""
+    if spec.kernel_id is None:
+        return torch.all(canonical_plain(a, spec) == canonical_plain(b, spec), dim=-1)
+    a, b = torch.broadcast_tensors(a, b)
+    return _observe(a, spec, "eq", other=b.contiguous())
 
 
 def is_zero(a: torch.Tensor, spec: ModSpec) -> torch.Tensor:
-    return torch.all(canonical(a, spec) == 0, dim=-1)
+    if spec.kernel_id is None:
+        return torch.all(canonical_plain(a, spec) == 0, dim=-1)
+    return _observe(a, spec, "zero")
+
+
+def canonical_geq(x: torch.Tensor, bound_limbs: np.ndarray,
+                  spec: ModSpec) -> torch.Tensor:
+    """canonical(x) >= bound, in one launch on CUDA; branch-free.  The bound
+    is canonical limbs of ``spec``'s layout held at module level or from
+    ``spec_limbs``: ``const`` keeps a device copy of every array it is
+    given."""
+    if spec.kernel_id is None:
+        return geq_const(canonical_plain(x, spec), bound_limbs)
+    return _observe(x, spec, "geq", bound=bound_limbs)
 
 
 def geq_const(x_canonical: torch.Tensor, bound_limbs: np.ndarray) -> torch.Tensor:
@@ -504,9 +542,10 @@ def from_bytes(b: torch.Tensor, spec: ModSpec) -> torch.Tensor:
 
 
 def to_bytes(x: torch.Tensor, spec: ModSpec) -> torch.Tensor:
+    """The canonical value as 32 little-endian bytes (one launch on CUDA)."""
     if spec.kernel_id is None:
-        return limbs_to_bytes_gen(canonical(x, spec), spec)
-    return limbs_to_bytes(canonical(x, spec))
+        return limbs_to_bytes_gen(canonical_plain(x, spec), spec)
+    return _observe(x, spec, "bytes")
 
 
 # ---------------------------------------------------------------------------
