@@ -47,6 +47,7 @@ from ..ops import limb as _l
 from ..ops.kernels import field_kernels as _fk
 from ..ops.limb import FIELD as _F
 from ..scalar import Scalar
+from ..utils import profiling as _prof
 
 
 def _add(p, q):
@@ -382,11 +383,15 @@ class EdwardsPoint:
         table read is indexed by the secret digit (see the module
         docstring).  use_fused is accepted for the JAX package's
         signature, where it picks its TPU kernel or its XLA comb; it has
-        no effect here."""
-        if width is None:
-            sw = COMB_WIDTH_SIGNED
-            return cls(*_fixed_base_mul_signed(scalar.windows(sw, -(-250 // sw)), sw))
-        return cls(*_fixed_base_mul(scalar.windows(width, -(-250 // width)), width))
+        no effect here.  Spans: ``zc.comb.recode`` (the digits) and
+        ``zc.comb.mul`` (K6 and its glue)."""
+        signed = width is None
+        w = COMB_WIDTH_SIGNED if signed else width
+        with _prof.span("comb.recode"):
+            windows = scalar.windows(w, -(-250 // w))
+        with _prof.span("comb.mul"):
+            comb = _fixed_base_mul_signed if signed else _fixed_base_mul
+            return cls(*comb(windows, w))
 
     # -- group ops ----------------------------------------------------------
     def _tuple(self):

@@ -25,6 +25,7 @@ from .parallel.msm import _use_dense, auto_c, auto_c_dense
 from .parallel.msm import msm as _msm
 from .ops.limb import SCALAR as _S
 from .scalar import Scalar
+from .utils import profiling as _prof
 
 
 def pad_batch(arr: np.ndarray, batch: int):
@@ -90,11 +91,17 @@ class Engine:
         width-14 comb on the packed table).  The comb is the one served
         path whose table load is indexed by a secret digit: it is not
         oblivious at cache-line granularity, as in the reference and the
-        JAX package (docs/CONSTANT_TIME.md)."""
+        JAX package (docs/CONSTANT_TIME.md).  Spans:
+        ``zc.keygen.reduce_wide``, the comb's two (``basepoint_mul``),
+        ``zc.keygen.encode``."""
         self._served.add("keygen")
-        sk = Scalar.from_bytes_wide(self._wire(seed64, 64), _S)
-        pk = _ri._compress(EdwardsPoint.basepoint_mul(sk)._tuple())
-        return sk.to_bytes(), pk
+        seed = self._wire(seed64, 64)
+        with _prof.span("keygen.reduce_wide"):
+            sk = Scalar.from_bytes_wide(seed, _S)
+        point = EdwardsPoint.basepoint_mul(sk)
+        with _prof.span("keygen.encode"):
+            pk = _ri._compress(point._tuple())
+            return sk.to_bytes(), pk
 
     def dh(self, sk32, peer32):
         """[batch, 32] secret scalar bytes + [batch, 32] peer Ristretto wire

@@ -46,6 +46,19 @@ def trace(logdir: str):
     prof.trace_path = path
 
 
+SPAN_PREFIX = "zc."
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``zc.<name>``
+    around one stage of a call, for a trace to time and count by stage.
+    The name is fixed by the call site (never built from data), and the
+    range neither waits for the card nor records its inputs; with no
+    profiler running an enter and exit cost about 11 us of host time
+    (H100 machine, PyTorch 2.11)."""
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
 def _synchronize_all() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
